@@ -1,0 +1,129 @@
+"""Rules of the PyTorch port that hold whatever the numbers say.
+
+  * Import rule: ``goslam_tpu_torch``, every one of its modules and
+    ``chip_smoke.py`` import neither JAX nor anything of ``goslam_tpu``.
+  * Device rule: the entry points run on the GPU unless the caller asks
+    for the CPU, and raise when no GPU is visible and none was asked for.
+  * The command-line entry point runs end to end on the CPU when asked
+    to, and writes the trajectory files.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, json, pkgutil, sys
+import goslam_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(goslam_tpu_torch.__path__,
+                                               "goslam_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "goslam_tpu"))
+print(json.dumps({"modules": len(names), "foreign": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_goslam_tpu():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    # the package has some twenty modules; all of them were imported
+    assert res["modules"] >= 20
+    assert res["foreign"] == []
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _cfg():
+    from goslam_tpu_torch.config import default_config, update_recursive
+    return update_recursive(default_config(), {
+        "dataset": "synthetic", "mode": "rgbd", "only_tracking": True,
+        "cam": {"H_out": 64, "W_out": 96},
+        "tracking": {"buffer": 8, "frontend": {"enable_loop": False}}})
+
+
+def test_slam_system_needs_a_gpu_unless_asked_for_the_cpu(no_gpu, tmp_path):
+    from goslam_tpu_torch.system import SLAMSystem, resolve_device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SLAMSystem(_cfg(), output=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SLAMSystem(_cfg(), output=str(tmp_path), device="cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    slam = SLAMSystem(_cfg(), output=str(tmp_path), device="cpu")
+    assert slam.video.poses.device.type == "cpu"
+
+
+def test_run_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
+    from goslam_tpu_torch import run
+    cfg = os.path.join(ROOT, "configs", "Demo", "synthetic.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main([cfg, "--only_tracking", "--output", str(tmp_path),
+                  "--max_frames", "2"])
+
+
+@pytest.mark.parametrize("what", ["mono", "mapping", "loop"])
+def test_unported_paths_raise(what, tmp_path):
+    """What this slice does not port says so instead of running
+    something else."""
+    from goslam_tpu_torch.system import SLAMSystem
+    cfg = _cfg()
+    if what == "mono":
+        cfg["mode"] = "mono"
+    elif what == "mapping":
+        cfg["only_tracking"] = False
+    else:
+        cfg["tracking"]["frontend"]["enable_loop"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+
+
+def test_global_ba_failure_propagates(tmp_path):
+    """The JAX package's SLAMSystem._safe logs and swallows any exception
+    from global BA, and tracking carries on; the port lets it through."""
+    from goslam_tpu_torch.system import SLAMSystem
+    cfg = _cfg()
+    cfg["tracking"]["global_ba_every"] = 1
+    slam = SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+    slam.motion_filter.track = lambda *a: True
+    slam.frontend = lambda: None
+    slam.frontend.is_initialized = True
+
+    def broken(*a, **k):
+        raise FloatingPointError("global BA failed")
+
+    slam.backend.dense_ba = broken
+    with pytest.raises(FloatingPointError, match="global BA failed"):
+        slam._drain_one(0.0, None, None, None, None)
+
+
+def test_run_entry_point_on_the_cpu(tmp_path):
+    """python -m goslam_tpu_torch.run on the demo config, cut to 10
+    frames at 64x96: it writes est_poses.npy (c2w of every frame) and
+    metrics_traj.txt (ATE against the synthetic ground truth)."""
+    cfg = os.path.join(ROOT, "configs", "Demo", "synthetic.yaml")
+    out = subprocess.run(
+        [sys.executable, "-m", "goslam_tpu_torch.run", cfg,
+         "--only_tracking", "--device", "cpu", "--output", str(tmp_path),
+         "--max_frames", "10", "--image_size", "64", "96"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    est = np.load(tmp_path / "est_poses.npy")
+    assert est.shape == (10, 4, 4) and np.isfinite(est).all()
+    with open(tmp_path / "metrics_traj.txt") as f:
+        ate = json.load(f)
+    assert ate["n_poses"] == 10 and np.isfinite(ate["rmse"])
