@@ -2,23 +2,33 @@
 """Smoke test of the PyTorch/CUDA port (goslam_tpu_torch) on one GPU.
 
     python3 chip_smoke.py              # everything, as a check on the card
-    python3 chip_smoke.py --profile    # also a profiled 128x192 run
+    python3 chip_smoke.py --profile    # also timed and traced runs of two paths
+    python3 chip_smoke.py --paths loop-160    # only some of the paths
 
 Phases, each of which exits non-zero on failure (nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      goslam_tpu_torch/csrc with nvcc (one process per source, in parallel);
-  2. check each kernel against its plain PyTorch version at a small shape;
-  3. the main path: RGB-D tracking only on the synthetic scene at 128x192,
-     40 frames, with checkpoints/droid_synthetic.ckpt, through
-     SLAMSystem.track / terminate.  Gates: every pose finite, ATE < 0.18 m,
-     and every kernel of the path launched (counts reset just before the
-     run, read just after).  The shapes each kernel was launched at are
-     recorded;
-  4. the same path at 240x320 (gates: finite, ATE < 0.25 m);
-  5. each kernel against its plain version at every shape the main path
-     gave it, with the kernel's device time (CUDA graph replay), the
-     wrapper's and the plain version's time, and the bound (the least
-     time the card could take for the same work) from this run's inputs.
+  2. check each kernel against its plain PyTorch version at a small shape,
+     and hold dba.ba with the PCG solver (whose matvec is the schur_matvec
+     kernel) against the Cholesky solver on a band graph of 192 poses;
+  3. the paths, each RGB-D tracking only on the synthetic scene with
+     checkpoints/droid_synthetic.ckpt, through SLAMSystem.track /
+     terminate, with the kernels' launch counts reset just before the run
+     and read just after, and the shapes of every launch recorded:
+       accuracy-128  40 frames at 128x192.  Gates: every pose finite,
+                     ATE < 0.18 m, edge_system and alt_corr launched;
+       accuracy-240  the same at 240x320 (finite, ATE < 0.25 m);
+       loop-160      160 frames, two laps, at 128x192 with loop closing:
+                     past 128 keyframes global BA and loop closing solve
+                     with PCG.  Gates: every pose finite, at least 129
+                     keyframes, all three kernels launched, a loop
+                     candidate accepted, ATE < LOOP_ATE_GATE;
+       loop-160-off  loop-160 without loop closing (reported beside it);
+       loop-160-240  loop-160 at 240x320 (finite, all kernels launched);
+  4. each kernel against its plain version at every shape a path gave it,
+     with the kernel's device time (CUDA graph replay), the wrapper's and
+     the plain version's time, and the bound (the least time the card
+     could take for the same work) from this run's inputs.
 
 The second line from the end is a JSON object listing the kernels, the
 line before it the card's name and power limit; the last line is
@@ -49,6 +59,16 @@ PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
 # ATE of the JAX package on the same 128x192 run, on a TPU v5e
 JAX_ATE_128 = 0.1277
+# gate of loop-160: about 1.5x the ATE the port measured on an H100
+# (0.37-0.39 m over four runs; 0.48 m without loop closing)
+LOOP_ATE_GATE = 0.58
+# converged PCG against Cholesky after two Gauss-Newton steps on 192
+# poses: poses (translations of ~1, unit quaternions) and disparities
+# (~0.6); and how far PCG with global BA's budget of 32 iterations may lag
+# Cholesky's pose error at 8x12, where tests/test_dba.py holds it
+CG_CHOL_POSE_TOL = 5e-3
+CG_CHOL_DISP_TOL = 1e-2
+CG32_LAG = 1.5
 
 # fp32 operations per pixel of the edge-system kernel, counted from
 # csrc/edge_system.cu: the warp and projection (~40), the two 6-row
@@ -57,6 +77,14 @@ JAX_ATE_128 = 0.1277
 K1_FLOP_PER_PX = 560
 # per output channel of alt-corr: the 4-tap bilinear combine (fp32)
 K2_FLOP_PER_CH = 11
+
+
+_T0 = time.perf_counter()
+
+
+def say(text: str):
+    """Print a progress line with the seconds since the script began."""
+    print(f"[{time.perf_counter() - _T0:5.0f} s] {text}", flush=True)
 
 
 def smi_line() -> str:
@@ -223,6 +251,120 @@ def check_alt_corr(gen, E, T, ht8, wd8, timing: bool):
     return res
 
 
+def schur_problem(gen, P: int, E: int, hw: int, n_valid: int):
+    """Operands of the Schur matvec as loop-160's global BA lays them
+    out: n_valid of the E edge slots hold edges, whose source frames are
+    the first 5/6 of the window (160 keyframes in a window of 192)."""
+    from goslam_tpu_torch.ops import dba
+    dev = "cuda"
+    used = max(1, P * 5 // 6)
+    valid = torch.zeros(E, dtype=torch.bool)
+    valid[torch.randperm(E, generator=gen)[:n_valid]] = True
+    ii = torch.randint(0, used, (E,), generator=gen)
+    jj = torch.randint(0, used, (E,), generator=gen)
+    plan = dba.schur_plan(ii.to(dev), valid.to(dev), P)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    return (rnd(P, 6), rnd(P, 6, hw), torch.rand((P, hw), generator=gen).to(dev),
+            rnd(E, 12, 12), rnd(E, 6, hw).to(torch.bfloat16),
+            jj.to(dev)[plan.order].to(torch.int32).contiguous(), plan.rowptr)
+
+
+def check_schur_matvec(gen, P, E, hw, n_valid, timing: bool):
+    from goslam_tpu_torch.ops import dba, kernels
+    args = schur_problem(gen, P, E, hw, n_valid)
+    out = dba.schur_matvec(*args)
+    ref = dba.schur_matvec_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise SystemExit("schur_matvec: non-finite output")
+    err = float((out - ref).abs().max())
+    rel = err / (float(ref.abs().max()) + 1e-12)
+    # the same bf16-rounded Eij in both; fp32 sums over hw pixels and a
+    # frame's edges in another order: 1e-4 of the output's largest entry
+    if rel > 1e-4:
+        raise SystemExit(f"schur_matvec P={P} E={E} hw={hw}: relative "
+                         f"error {rel:.3g} > 1e-4")
+    # no atomics in the kernel: two launches give the same bits
+    yf = [torch.empty((P, 6), device="cuda") for _ in range(2)]
+    oc = [torch.empty((E, 6), device="cuda") for _ in range(2)]
+    for k in range(2):
+        kernels.schur_matvec(*args, yf[k], oc[k])
+    if not (torch.equal(yf[0], yf[1]) and torch.equal(oc[0], oc[1])):
+        raise SystemExit("schur_matvec: two launches differ")
+    res = {"P": P, "E": E, "hw": hw, "n_valid": n_valid,
+           "max_abs_err": err, "max_rel_err": rel}
+    if timing:
+        res["ms"] = graph_ms(lambda: kernels.schur_matvec(*args, yf[0],
+                                                          oc[0]))
+        res["wrapper_ms"] = cuda_ms(lambda: dba.schur_matvec(*args))
+        res["plain_ms"] = cuda_ms(lambda: dba.schur_matvec_plain(*args))
+        # read once: x, Ei, Q, rowptr, and H, Eij (bf16), jj of the valid
+        # edges; written once: yf and oc
+        nbytes = P * 6 * 4 + P * 6 * hw * 4 + P * hw * 4 + (P + 1) * 4 \
+            + n_valid * (144 * 4 + 6 * hw * 2 + 4) + P * 6 * 4 + E * 6 * 4
+        # a multiply-add per Ei and Eij entry in each of the two passes,
+        # the Q scaling, and the 12x12 product per edge
+        flop = 2 * 2 * 6 * hw * (P + n_valid) + P * hw + n_valid * 2 * 144
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flop / PEAK_FP32_S)
+    return res
+
+
+def check_cg_vs_chol(ht8: int, wd8: int, P: int = 192):
+    """dba.ba with solver="cg" (the schur_matvec kernel inside PCG)
+    against solver="chol" on one seeded band graph of P poses, the
+    problem of tests/test_dba.py: a chain of poses, every frame tied to
+    its three neighbours on each side, targets from the true scene, a
+    perturbed start, two Gauss-Newton steps in the global-BA damping
+    regime.  PCG runs with the budget global BA gives it (32 iterations
+    per step) and with one that lets it converge (256)."""
+    from goslam_tpu_torch.ops import dba, lie, projective
+    dev = "cuda"
+    gen = torch.Generator().manual_seed(11)
+    xi = torch.cumsum(0.02 * torch.randn((P, 6), generator=gen), dim=0)
+    poses_gt = lie.exp(xi).to(dev)
+    disps = (0.5 + 0.2 * torch.rand((P, ht8, wd8), generator=gen)).to(dev)
+    intr = torch.tensor([0.9 * wd8, 0.9 * wd8, wd8 / 2 - 0.5,
+                         ht8 / 2 - 0.5]).to(dev)
+    k = torch.arange(P)
+    keep = (k[:, None] != k[None, :]) & ((k[:, None] - k[None, :]).abs() <= 3)
+    ii, jj = [t.to(dev) for t in torch.nonzero(keep, as_tuple=True)]
+    E = ii.shape[0]
+    target, _ = projective.transform(poses_gt, disps, intr, ii, jj)
+    xi_p = 0.02 * torch.randn((P, 6), generator=gen)
+    xi_p[0] = 0
+    poses0 = lie.compose(lie.exp(xi_p).to(dev), poses_gt)
+    args = (poses0, disps, intr, torch.zeros_like(disps), target,
+            torch.ones((E, ht8, wd8, 2), device=dev),
+            torch.full_like(disps, 1e-4), ii, jj,
+            torch.ones(E, dtype=torch.bool, device=dev), 1, P)
+    kw = dict(iters=2, lm=1e-5, ep=1e-2, max_deg=8)
+
+    def pose_err(a):
+        return float((lie.rel(a[:1].expand_as(a), a)[:, :3]
+                      - lie.rel(poses_gt[:1].expand_as(a),
+                                poses_gt)[:, :3]).abs().max())
+
+    p_ch, d_ch = dba.ba(*args, solver="chol", **kw)
+    res = {"P": P, "E": E, "hw": ht8 * wd8, "err_start": pose_err(poses0),
+           "err_chol": pose_err(p_ch)}
+    for budget in (32, 256):
+        p_cg, d_cg = dba.ba(*args, solver="cg", cg_iters=budget, **kw)
+        if not (torch.isfinite(p_cg).all() and torch.isfinite(d_cg).all()):
+            raise SystemExit(f"cg vs chol: non-finite PCG result {res}")
+        res[f"err_cg{budget}"] = pose_err(p_cg)
+        res[f"pose_diff_cg{budget}"] = float((p_cg - p_ch).abs().max())
+        res[f"disp_diff_cg{budget}"] = float((d_cg - d_ch).abs().max())
+    torch.cuda.synchronize()
+    # Cholesky cuts the start error to a quarter (tests/test_dba.py); the
+    # converged PCG lands on its solution up to the bf16 rounding of Eij
+    # (~0.4 % of the operator) and the PCG tolerance
+    if not (res["err_chol"] < 0.25 * res["err_start"]
+            and res["pose_diff_cg256"] < CG_CHOL_POSE_TOL
+            and res["disp_diff_cg256"] < CG_CHOL_DISP_TOL):
+        raise SystemExit(f"cg vs chol at P={P} disagree: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -248,23 +390,61 @@ def accuracy_config(ht: int, wd: int):
     return cfg
 
 
+def loop_config(ht: int, wd: int, enable_loop: bool = True):
+    """loop-160: two laps of the accuracy configuration's orbit at its
+    angle per frame (160 frames, orbit_fraction 2.0), so that lap two
+    revisits lap one, with the loop-closing settings of
+    tests/test_loop_closure.py.  About 160 keyframes: from the 129th on,
+    global BA and loop closing work on a window of 192 poses and solve
+    with PCG."""
+    from goslam_tpu_torch.config import update_recursive
+    return update_recursive(accuracy_config(ht, wd), {
+        "data": {"n_frames": 160, "orbit_fraction": 2.0},
+        "tracking": {
+            "buffer": 256,
+            "frontend": {"enable_loop": enable_loop},
+            "backend": {"loop_window": 25, "loop_thresh": 30.0,
+                        "loop_radius": 1, "loop_nms": 2},
+        },
+    })
+
+
+# name -> (config, ATE gate or None, kernels that must have been launched,
+# fewest keyframes)
+PATHS = {
+    "accuracy-128": (lambda: accuracy_config(128, 192), 0.18,
+                     ("edge_system", "alt_corr"), 0),
+    "accuracy-240": (lambda: accuracy_config(240, 320), 0.25,
+                     ("edge_system", "alt_corr"), 0),
+    "loop-160": (lambda: loop_config(128, 192), LOOP_ATE_GATE,
+                 ("edge_system", "alt_corr", "schur_matvec"), 129),
+    "loop-160-off": (lambda: loop_config(128, 192, False), None,
+                     ("edge_system", "alt_corr", "schur_matvec"), 129),
+    "loop-160-240": (lambda: loop_config(240, 320), None,
+                     ("edge_system", "alt_corr", "schur_matvec"), 129),
+}
+
+
 class ShapeRecorder:
     """Counts the shapes each kernel is launched at while installed: the
     launch functions of ops/kernels.py are wrapped for the duration of
-    one main-path run and restored after it."""
+    one run and restored after it.  For the Schur matvec it also keeps
+    the largest number of valid edges seen at each shape (one scalar read
+    from the device per launch)."""
 
     def __init__(self):
         from goslam_tpu_torch.ops import kernels
         self.kernels = kernels
-        self.shapes = {"edge_system": {}, "alt_corr": {}}
+        self.shapes = {"edge_system": {}, "alt_corr": {}, "schur_matvec": {}}
+        self.schur_valid = {}
 
     def _count(self, name, key):
         self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
 
     def __enter__(self):
         k = self.kernels
-        self._orig = (k.edge_system, k.alt_corr)
-        es, ac = self._orig
+        self._orig = (k.edge_system, k.alt_corr, k.schur_matvec)
+        es, ac, sm = self._orig
 
         def edge_system(d_i, *rest):
             self._count("edge_system", tuple(d_i.shape))          # (E, hw)
@@ -275,27 +455,56 @@ class ShapeRecorder:
             self._count("alt_corr", (E, levels[0].shape[0], h * w))
             return ac(levels, coords, *rest)
 
-        k.edge_system, k.alt_corr = edge_system, alt_corr
+        def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, *rest):
+            key = (Ei.shape[0], Eij.shape[0], Ei.shape[2])        # (P, E, hw)
+            self._count("schur_matvec", key)
+            self.schur_valid[key] = max(self.schur_valid.get(key, 0),
+                                        int(rowptr[-1]))
+            return sm(x, Ei, Q, H, Eij, jj, rowptr, *rest)
+
+        k.edge_system, k.alt_corr, k.schur_matvec = (edge_system, alt_corr,
+                                                     schur_matvec)
         return self
 
     def __exit__(self, *exc):
-        self.kernels.edge_system, self.kernels.alt_corr = self._orig
+        k = self.kernels
+        k.edge_system, k.alt_corr, k.schur_matvec = self._orig
 
 
 class PhaseTimer:
     """Wall time of the system's phases (motion filter, frontend, global
-    BA, trajectory filler), each ended by a device synchronize; installed
-    on one SLAMSystem instance for a profiled run."""
+    BA, loop closing, the PCG solves inside them, trajectory filler), each
+    ended by a device synchronize, and the PCG solves' iteration counts;
+    installed for one timed run.  Phases nest: a frontend update
+    contains its loop closing, which contains its PCG solves."""
 
     def __init__(self, slam):
+        from goslam_tpu_torch.ops import dba
         self.totals = {}
+        self.pcg_solves = 0
+        self.pcg_iterations = 0
+        self._dba = dba
+        self._cg_solve = dba._cg_solve
         for name, obj, attr in (("motion_filter", slam.motion_filter, "track"),
                                 ("frontend", slam.frontend, "_update"),
                                 ("frontend_init", slam.frontend, "_initialize"),
                                 ("global_ba", slam.backend, "dense_ba"),
+                                ("loop_ba", slam.backend, "loop_ba"),
                                 ("traj_filler", slam.traj_filler,
                                  "_fill_batch")):
             setattr(obj, attr, self._wrap(name, getattr(obj, attr)))
+        timed_solve = self._wrap("pcg_solve", dba._cg_solve)
+
+        def cg_solve(*a, **k):
+            dx, iterations = timed_solve(*a, **k)
+            self.pcg_solves += 1
+            self.pcg_iterations += iterations
+            return dx, iterations
+
+        dba._cg_solve = cg_solve
+
+    def close(self):
+        self._dba._cg_solve = self._cg_solve
 
     def _wrap(self, name, fn):
         def timed(*a, **k):
@@ -309,29 +518,39 @@ class PhaseTimer:
         return timed
 
 
-def run_main_path(ht: int, wd: int, out_dir: str, profile: bool = False):
+def run_path(name: str, out_dir: str, phases: bool = False,
+             trace: bool = False):
+    """Drive one path through SLAMSystem.track / terminate and check what
+    comes out: finite poses of the expected shape, the path's ATE gate,
+    its fewest keyframes, its kernels launched.  `phases` times the
+    system's phases (a device synchronize around each), `trace` runs
+    under torch.profiler; both slow the run, so they are separate."""
     from goslam_tpu_torch.data.synthetic import Synthetic
     from goslam_tpu_torch.models.convert import load_checkpoint
     from goslam_tpu_torch.ops import kernels
     from goslam_tpu_torch.system import SLAMSystem
 
-    cfg = accuracy_config(ht, wd)
+    make_cfg, gate, must_launch, min_keyframes = PATHS[name]
+    cfg = make_cfg()
+    ht, wd = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
     ds = Synthetic(cfg)
     frames = [ds[i] for i in range(len(ds))]
     slam = SLAMSystem(cfg, state_dict=load_checkpoint(CKPT), output=out_dir,
                       only_tracking=True)
-    phases = PhaseTimer(slam) if profile else None
+    timer = PhaseTimer(slam) if phases else None
 
     def stream():
         for i, (_, img, depth, intr, gt) in enumerate(frames):
             yield float(i), img, depth, intr, gt
 
     prof = None
-    if profile:
+    if trace:
         from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA])
+        # the device's events only: with the host's operators too, a
+        # path of 160 frames takes many minutes to summarize
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
         prof.__enter__()
+    torch.cuda.reset_peak_memory_stats()
     with ShapeRecorder() as rec:
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -346,26 +565,55 @@ def run_main_path(ht: int, wd: int, out_dir: str, profile: bool = False):
         launches = dict(kernels.LAUNCHES)
     if prof is not None:
         prof.__exit__(None, None, None)
+    if timer is not None:
+        timer.close()
 
     n = slam.video.counter
     poses = slam.video.poses[:n]
     est = np.load(os.path.join(out_dir, "est_poses.npy"))
     if not (bool(torch.isfinite(poses).all()) and np.isfinite(est).all()):
-        raise SystemExit(f"{ht}x{wd}: non-finite poses")
+        raise SystemExit(f"{name}: non-finite poses")
     if est.shape != (len(frames), 4, 4):
-        raise SystemExit(f"{ht}x{wd}: trajectory of shape {est.shape}")
+        raise SystemExit(f"{name}: trajectory of shape {est.shape}")
     res = {
-        "ht": ht, "wd": wd, "frames": len(frames), "keyframes": n,
+        "path": name, "ht": ht, "wd": wd, "frames": len(frames),
+        "keyframes": n,
         "ate_rmse": metrics["ate"]["rmse"], "ate_scale": metrics["ate"]["scale"],
         "track_s": t_track, "total_s": t_total,
         "tracked_fps": len(frames) / t_track, "launches": launches,
+        "loop_accepts": slam.backend.total_loop_accepts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "shapes": {k: sorted(v.items(), key=lambda kv: -kv[1])
                    for k, v in rec.shapes.items()},
+        "schur_valid": sorted(rec.schur_valid.items()),
     }
-    if profile:
-        res["phases_s"] = phases.totals
+    if phases:
+        res["phases_s"] = timer.totals
+        res["pcg"] = {"solves": timer.pcg_solves,
+                      "iterations": timer.pcg_iterations}
+    if trace:
         res["profile"] = summarize_profile(prof, t_total, out_dir)
+
+    kind = "timed " if phases else "traced " if trace else ""
+    say(f"{kind}path {name}: {json.dumps(res)}")
+    ref = f" (JAX on a TPU v5e: {JAX_ATE_128} m)" \
+        if name == "accuracy-128" else ""
+    print(f"  {name}: {n} keyframes, ATE {res['ate_rmse']:.4f} m{ref}, scale "
+          f"{res['ate_scale']:.3f}, {res['tracked_fps']:.2f} tracked "
+          f"frames/s, {res['total_s']:.1f} s in all, kernels {launches}, "
+          f"loop candidates accepted {res['loop_accepts']}", flush=True)
+    if gate is not None and not res["ate_rmse"] < gate:
+        raise SystemExit(f"{name}: ATE {res['ate_rmse']} >= {gate}")
+    if n < min_keyframes:
+        raise SystemExit(f"{name}: {n} keyframes, fewer than the "
+                         f"{min_keyframes} at which global BA reaches the "
+                         f"PCG solver: the run proves nothing")
+    for kernel in must_launch:
+        if launches[kernel] <= 0:
+            raise SystemExit(f"{name}: kernel {kernel} was not launched")
+    if cfg["tracking"]["frontend"]["enable_loop"] \
+            and res["loop_accepts"] <= 0:
+        raise SystemExit(f"{name}: no loop candidate passed the vote")
     return res
 
 
@@ -375,15 +623,14 @@ def summarize_profile(prof, wall_s: float, out_dir: str):
     the full table goes to <out_dir>/profile.txt."""
     from torch.autograd import DeviceType
 
-    # the device's own events only: a CPU op's device time repeats the
-    # time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    # kernels and copies only, not the runtime calls that launched them
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     with open(os.path.join(out_dir, "profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=60))
+        f.write(averages.table(sort_by="self_device_time_total",
+                               row_limit=60))
     return {
         "device_busy_s": busy_us / 1e6, "wall_s": wall_s,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
@@ -392,15 +639,35 @@ def summarize_profile(prof, wall_s: float, out_dir: str):
     }
 
 
+KERNELS = (
+    ("edge_system", "goslam_tpu_torch/csrc/edge_system.cu",
+     "goslam_tpu/ops/pallas_kernels.py:43", "accuracy-128"),
+    ("alt_corr", "goslam_tpu_torch/csrc/alt_corr.cu",
+     "goslam_tpu/ops/pallas_corr.py:70", "accuracy-128"),
+    ("schur_matvec", "goslam_tpu_torch/csrc/schur_matvec.cu",
+     "goslam_tpu/ops/pallas_kernels.py:281", "loop-160"),
+)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", action="store_true",
-                        help="add a profiled 128x192 run: phase times, "
-                             "device idle share, largest kernels")
+                        help="add two more runs each of accuracy-128 and "
+                             "loop-160: one with phase times and PCG "
+                             "iterations, one under torch.profiler (device "
+                             "idle share, largest kernels)")
+    parser.add_argument("--paths", default=",".join(PATHS),
+                        help="comma-separated paths to drive (default: "
+                             "all); the result line is printed only when "
+                             "all of them ran")
     parser.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"),
                         help="directory for the trajectories and the "
                              "profile table")
     args = parser.parse_args(argv)
+    names = [n for n in args.paths.split(",") if n]
+    for n in names:
+        if n not in PATHS:
+            parser.error(f"unknown path {n!r}; known: {', '.join(PATHS)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -413,9 +680,9 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     paths = kernels.build()
-    print(f"built {sorted(paths)} in {time.perf_counter() - t0:.1f} s",
+    print(f"built {sorted(paths)} in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for p in paths.values():
         with open(p + ".log") as f:
@@ -428,64 +695,73 @@ def main(argv=None) -> int:
           check_edge_system(gen, 16, 8, 12, False), flush=True)
     print("small check alt_corr:",
           check_alt_corr(gen, 8, 4, 8, 12, False), flush=True)
+    print("small check schur_matvec:",
+          check_schur_matvec(gen, 16, 64, 96, 50, False), flush=True)
+    for ht8, wd8 in ((8, 12), (16, 24)):
+        res = check_cg_vs_chol(ht8, wd8)
+        say(f"cg vs chol: {json.dumps(res)}")
+        if ht8 == 8 and not res["err_cg32"] < CG32_LAG * res["err_chol"]:
+            raise SystemExit(f"PCG with 32 iterations lags Cholesky by more "
+                             f"than {CG32_LAG}x: {res}")
 
-    runs = []
-    out_root = args.out
-    for (ht, wd), gate in (((128, 192), 0.18), ((240, 320), 0.25)):
-        r = run_main_path(ht, wd, os.path.join(out_root, f"{ht}x{wd}"))
-        runs.append(r)
-        ref = f" (JAX on a TPU v5e: {JAX_ATE_128} m)" if ht == 128 else ""
-        print(f"main path {ht}x{wd}: {json.dumps(r)}", flush=True)
-        print(f"  ATE {r['ate_rmse']:.4f} m{ref}, scale "
-              f"{r['ate_scale']:.3f}, {r['tracked_fps']:.2f} tracked "
-              f"frames/s, kernels {r['launches']}", flush=True)
-        if not r["ate_rmse"] < gate:
-            raise SystemExit(f"{ht}x{wd}: ATE {r['ate_rmse']} >= {gate}")
-        for name, count in r["launches"].items():
-            if count <= 0:
-                raise SystemExit(f"{ht}x{wd}: kernel {name} was not "
-                                 f"launched on the main path")
+    runs = {}
+    for name in names:
+        runs[name] = run_path(name, os.path.join(args.out, name))
+    if "loop-160" in runs and "loop-160-off" in runs:
+        print(f"loop-160 ATE with loop closing "
+              f"{runs['loop-160']['ate_rmse']:.4f} m, without "
+              f"{runs['loop-160-off']['ate_rmse']:.4f} m", flush=True)
     if args.profile:
-        r = run_main_path(128, 192, os.path.join(out_root, "profile"),
-                          profile=True)
-        print(f"profiled main path 128x192: {json.dumps(r)}", flush=True)
+        for name in ("accuracy-128", "loop-160"):
+            if name in runs:
+                run_path(name, os.path.join(args.out, f"profile-{name}"),
+                         phases=True)
+                run_path(name, os.path.join(args.out, f"profile-{name}"),
+                         trace=True)
 
-    # every kernel at every shape the main path gave it, timed
-    checked = {"edge_system": {}, "alt_corr": {}}
-    for r in runs:
+    # every kernel at every shape a path gave it, timed
+    checked = {"edge_system": {}, "alt_corr": {}, "schur_matvec": {}}
+    for r in runs.values():
         h8, w8 = r["ht"] // 8, r["wd"] // 8
         for (E, hw), count in r["shapes"]["edge_system"]:
-            res = check_edge_system(gen, E, h8, w8, True)
-            checked["edge_system"][(r["ht"], E)] = res
-            print(f"edge_system {r['ht']}x{r['wd']} ({count} launches): "
-                  f"{json.dumps(res)}", flush=True)
+            if (hw, E) not in checked["edge_system"]:
+                res = check_edge_system(gen, E, h8, w8, True)
+                checked["edge_system"][(hw, E)] = res
+                say(f"edge_system {json.dumps(res)}")
         for (E, T, hw), count in r["shapes"]["alt_corr"]:
-            res = check_alt_corr(gen, E, T, h8, w8, True)
-            checked["alt_corr"][(r["ht"], E, T)] = res
-            print(f"alt_corr {r['ht']}x{r['wd']} ({count} launches): "
-                  f"{json.dumps(res)}", flush=True)
+            if (hw, E, T) not in checked["alt_corr"]:
+                res = check_alt_corr(gen, E, T, h8, w8, True)
+                checked["alt_corr"][(hw, E, T)] = res
+                say(f"alt_corr {json.dumps(res)}")
+        for (P, E, hw), n_valid in r["schur_valid"]:
+            if (hw, P, E) not in checked["schur_matvec"]:
+                res = check_schur_matvec(gen, P, E, hw, n_valid, True)
+                checked["schur_matvec"][(hw, P, E)] = res
+                say(f"schur_matvec {json.dumps(res)}")
+    say("all kernels checked at every shape")
 
-    # the line of kernels: times at the shape the 128x192 main path
-    # launched each kernel at most often
-    main_run = runs[0]
+    if set(names) != set(PATHS):
+        print("not all paths were driven: no result line", file=sys.stderr)
+        return 1
+
+    # the line of kernels: each kernel's launches on its path, and its
+    # times at the shape that path launched it at most often
     entries = []
-    for name, src, tpu in (
-            ("edge_system", "goslam_tpu_torch/csrc/edge_system.cu",
-             "goslam_tpu/ops/pallas_kernels.py:43"),
-            ("alt_corr", "goslam_tpu_torch/csrc/alt_corr.cu",
-             "goslam_tpu/ops/pallas_corr.py:70")):
-        shape = main_run["shapes"][name][0][0]
-        key = (128, shape[0]) if name == "edge_system" \
-            else (128, shape[0], shape[1])
+    for name, src, tpu, path in KERNELS:
+        run = runs[path]
+        shape = run["shapes"][name][0][0]
+        hw = shape[-1]
+        key = (hw,) + tuple(shape[:-1])
         res = checked[name][key]
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": main_run["launches"][name],
+            "path": path, "shape": list(shape),
+            "launches": run["launches"][name],
             "max_abs_err": max(c["max_abs_err"]
                                for c in checked[name].values()),
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            # no single PyTorch call computes either function
+            # no single PyTorch call computes any of the three functions
             "library_ms": None,
         })
     print(card)

@@ -8,7 +8,11 @@
     E C^-1 E^T is formed from the diagonal, the pose-depth cross terms,
     and the same-source edge pairs of a degree-capped source table;
   * the reduced system is solved with a damped Cholesky (fp32 plus one
-    refinement step); a failed or non-finite solve gives dx = 0.
+    refinement step), or, for large windows (``solver="cg"``), with
+    matrix-free preconditioned conjugate gradients whose matvec is
+    ``schur_matvec``: on CUDA tensors the hand-written kernel
+    ``csrc/schur_matvec.cu``, on CPU tensors ``schur_matvec_plain``.  A
+    failed or non-finite solve gives dx = 0.
 
 Constants: weights scaled by 0.001; MIN_DEPTH 0.25 zeroes weights; stereo
 (ii == jj) edges constrain depth only; the RGB-D prior alpha 0.05 mixes
@@ -244,25 +248,189 @@ def _block_index(rows, cols, P6):
     return r * P6 + c
 
 
+def _inv6(blocks: torch.Tensor) -> torch.Tensor:
+    """Batched 6x6 inverse; a singular or non-finite block gives the
+    identity (``solve_ex`` reports a singular block where ``solve`` would
+    raise on the CPU)."""
+    eye = torch.eye(6, dtype=blocks.dtype, device=blocks.device)
+    inv, info = torch.linalg.solve_ex(blocks, eye.expand_as(blocks))
+    ok = (info == 0) & torch.isfinite(inv).all(dim=-1).all(dim=-1)
+    return torch.where(ok[:, None, None], inv, eye)
+
+
+def _pcg(matvec, Minv_blocks, rhs, pm_f, iters: int = 64, tol: float = 1e-5,
+         x0=None):
+    """Preconditioned conjugate gradients on the [P, 6] pose system.
+
+    Minv_blocks [P, 6, 6] is the block-Jacobi preconditioner; fixed poses
+    stay at zero through the pm_f masking inside matvec.  The loop ends
+    early on the relative residual ``|r| <= tol |rhs|``, which the host
+    reads once per iteration (one synchronize each).  x0 warm-starts the
+    iteration.  Returns (x, iterations taken); a non-finite solution
+    gives zeros."""
+    def apply_M(r):
+        return torch.einsum("kab,kb->ka", Minv_blocks, r)
+
+    x = torch.zeros_like(rhs) if x0 is None else x0 * pm_f[:, None]
+    r = rhs - matvec(x)
+    z = apply_M(r)
+    p = z
+    rz = (r * z).sum()
+    rhs_norm = torch.sqrt((rhs * rhs).sum()) + 1e-30
+    k = 0
+    while k < iters and bool(torch.sqrt((r * r).sum()) > tol * rhs_norm):
+        Ap = matvec(p)
+        alpha = rz / ((p * Ap).sum() + 1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_M(r)
+        rz_new = (r * z).sum()
+        p = z + (rz_new / (rz + 1e-30)) * p
+        rz = rz_new
+        k += 1
+    good = torch.isfinite(x).all()
+    return torch.where(good, x, torch.zeros_like(x)) * pm_f[:, None], k
+
+
+class SchurPlan(NamedTuple):
+    """Edge order of ``schur_matvec``, made once per ``ba`` call."""
+    order: torch.Tensor     # [E] permutation: by source frame, invalid last
+    rowptr: torch.Tensor    # [P + 1] int32: frame k owns rowptr[k:k+2]
+
+
+def schur_plan(ii, valid, P: int) -> SchurPlan:
+    """Sort the edges by source frame (stable, so the plan is the same on
+    every device), invalid edges past the end where nothing visits them."""
+    key = torch.where(valid, ii, torch.full_like(ii, P))
+    ks, order = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(ks, torch.arange(P + 1, device=ii.device))
+    return SchurPlan(order, rowptr.to(torch.int32))
+
+
+def schur_matvec_plain(x, Ei, Q, H, Eij, jj, rowptr) -> torch.Tensor:
+    """Plain version of the Schur-matvec kernel: y = (A - E Q E^T) x,
+    damping excluded.
+
+    x [P, 6]; Ei [P, 6, hw]; Q [P, hw]; H [E, 12, 12] pose-pair Hessians
+    in the [x_i | x_j] basis; Eij [E, 6, hw] bf16 (summed in fp32); jj [E]
+    and rowptr [P + 1] of edges sorted by source frame (``schur_plan``).
+    Edges at or past rowptr[P] are invalid and contribute nothing."""
+    P, E = Ei.shape[0], Eij.shape[0]
+    e = torch.arange(E, device=x.device)
+    rp = rowptr.long()
+    ok = (e < rp[P])[:, None, None]
+    ii = torch.searchsorted(rp[1:], e, right=True).clamp(max=P - 1)
+    jj = jj.long()
+    G = torch.where(ok, Eij.float(), torch.zeros((), device=x.device))
+    Hm = torch.where(ok, H, torch.zeros((), device=x.device))
+    xj = x[jj]
+    hy = torch.einsum("eab,eb->ea", Hm, torch.cat([x[ii], xj], dim=1))
+    u = torch.einsum("kah,ka->kh", Ei, x)
+    u = Q * u.index_add(0, ii, torch.einsum("eah,ea->eh", G, xj))
+    y = -torch.einsum("kah,kh->ka", Ei, u)
+    y = y.index_add(0, ii, hy[:, :6])
+    return y.index_add(0, jj, hy[:, 6:]
+                       - torch.einsum("eah,eh->ea", G, u[ii]))
+
+
+def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr) -> torch.Tensor:
+    """One matvec of the reduced camera system (see schur_matvec_plain):
+    CUDA tensors launch the kernel csrc/schur_matvec.cu, whose per-edge
+    rows are then scatter-added to their target frames; CPU tensors take
+    the plain version."""
+    if x.device.type == "cpu":
+        return schur_matvec_plain(x, Ei, Q, H, Eij, jj, rowptr)
+    P, _, hw = Ei.shape
+    E = Eij.shape[0]
+    for name, t, shape, dtype in (
+            ("x", x, (P, 6), torch.float32), ("Ei", Ei, (P, 6, hw),
+                                              torch.float32),
+            ("Q", Q, (P, hw), torch.float32),
+            ("H", H, (E, 12, 12), torch.float32),
+            ("Eij", Eij, (E, 6, hw), torch.bfloat16),
+            ("jj", jj, (E,), torch.int32),
+            ("rowptr", rowptr, (P + 1,), torch.int32)):
+        if (t.shape != shape or t.dtype != dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"schur matvec: {name} must be contiguous {dtype} "
+                f"{list(shape)} on {x.device}, got {t.dtype} "
+                f"{list(t.shape)} on {t.device}")
+    yf = torch.empty((P, 6), dtype=torch.float32, device=x.device)
+    oc = torch.empty((E, 6), dtype=torch.float32, device=x.device)
+    kernels.schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, yf, oc)
+    return yf.index_add_(0, jj, oc)
+
+
+def _cg_solve(rhs, Hblocks, Ei, Eij_m, Q, ii, jj, pm_f, lm: float,
+              ep: float, cg_iters: int, plan, x0):
+    """Matrix-free PCG on the reduced system: block-Jacobi preconditioner
+    ``Dg + diag(ep + lm diag(Dg))`` (identity on fixed poses), damping
+    applied outside the matvec.  ``plan`` is (jj int32, rowptr) of the
+    sorted edges, or None for motion-only BA, whose matvec is the
+    pose-Hessian part alone.  Returns (dx, iterations taken)."""
+    Hii, Hij, Hji, Hjj = Hblocks
+    P = rhs.shape[0]
+    eye6 = torch.eye(6, dtype=rhs.dtype, device=rhs.device)
+
+    Dg = torch.zeros((P, 6, 6), dtype=rhs.dtype, device=rhs.device)
+    Dg.index_add_(0, ii, Hii)
+    Dg.index_add_(0, jj, Hjj)
+    if plan is not None:
+        Dg = Dg - torch.einsum("kah,kbh->kab", Ei * Q[:, None], Ei)
+        Dg.index_add_(0, jj, -torch.einsum(
+            "eah,ebh->eab", Eij_m * Q[ii][:, None], Eij_m))
+
+    damp = ep + lm * torch.diagonal(Dg, dim1=-2, dim2=-1)         # [P, 6]
+    Mb = Dg + torch.diag_embed(damp)
+    Mb = Mb * pm_f[:, None, None] + eye6 * (1 - pm_f)[:, None, None]
+    Minv = _inv6(Mb)
+
+    if plan is not None:
+        # the operands of the matvec, packed once per Gauss-Newton step;
+        # Eij travels as bf16 as in the TPU kernel
+        jj32, rowptr = plan
+        Hm = torch.cat([torch.cat([Hii, Hij], dim=2),
+                        torch.cat([Hji, Hjj], dim=2)], dim=1).contiguous()
+        Eij_k = Eij_m.to(torch.bfloat16).contiguous()
+        Ei_k, Q_k = Ei.contiguous(), Q.contiguous()
+
+    def matvec(x):
+        xm = x * pm_f[:, None]
+        if plan is not None:
+            yA = schur_matvec(xm, Ei_k, Q_k, Hm, Eij_k, jj32, rowptr)
+        else:
+            xi, xj = xm[ii], xm[jj]
+            yA = torch.zeros_like(xm)
+            yA.index_add_(0, ii, torch.einsum("eab,eb->ea", Hii, xi)
+                          + torch.einsum("eab,eb->ea", Hij, xj))
+            yA.index_add_(0, jj, torch.einsum("eab,eb->ea", Hji, xi)
+                          + torch.einsum("eab,eb->ea", Hjj, xj))
+        y = (yA + damp * xm) * pm_f[:, None]
+        return y + x * (1 - pm_f)[:, None]
+
+    return _pcg(matvec, Minv, rhs * pm_f[:, None], pm_f, cg_iters, x0=x0)
+
+
 def ba(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
        valid, t0: int, t1: int, iters: int = 2, lm: float = 1e-4,
        ep: float = 0.1, motion_only: bool = False, max_deg: int = 24,
-       solver: str = "chol"):
+       solver: str = "chol", cg_iters: int = 64):
     """Run `iters` Gauss-Newton steps of dense bundle adjustment.
 
     poses [P, 7]; disps/disps_sens/eta [P, ht, wd]; target/weight
     [E, ht, wd, 2]; ii/jj [E] window-local; valid [E] bool.  Poses in
-    [t0, t1) are optimized.  Returns (poses, disps).
+    [t0, t1) are optimized.  ``solver`` is "chol" (dense damped Cholesky)
+    or "cg" (matrix-free PCG, at most ``cg_iters`` iterations per
+    Gauss-Newton step).  Returns (poses, disps).
 
     The per-source edge degree must fit the table capacity max_deg: it is
     checked here on the host (callers bucket max_deg from the true
     degree); ``_ba_impl`` itself poisons its outputs with NaN on a table
     overflow.
     """
-    if solver != "chol":
-        raise NotImplementedError(
-            "only the dense Cholesky solver is ported; the PCG solver for "
-            "windows of >= 192 poses is queued in ROADMAP.md (A7, K3)")
+    if solver not in ("chol", "cg"):
+        raise ValueError(f"solver must be 'chol' or 'cg', got {solver!r}")
     if bool(valid.any()):
         deg = int(torch.bincount(ii[valid]).max())
         if deg > max_deg:
@@ -272,7 +440,7 @@ def ba(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
                 f"(utils.shapes.bucket) before calling ba()")
     return _ba_impl(poses, disps, intrinsics, disps_sens, target, weight,
                     eta, ii, jj, valid, t0, t1, iters, lm, ep, motion_only,
-                    max_deg)
+                    max_deg, solver, cg_iters)
 
 
 def _dense_solve(rhs, L, pm_f, lm: float, ep: float):
@@ -287,7 +455,8 @@ def _dense_solve(rhs, L, pm_f, lm: float, ep: float):
 
 
 def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
-             jj, valid, t0, t1, iters, lm, ep, motion_only, max_deg):
+             jj, valid, t0, t1, iters, lm, ep, motion_only, max_deg,
+             solver="chol", cg_iters=64):
     """The Gauss-Newton loop of ``ba`` without the host degree check."""
     P = poses.shape[0]
     ht, wd = disps.shape[-2:]
@@ -295,6 +464,17 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
     P6 = P * 6
     dev = poses.device
     f32 = torch.float32
+    cg = solver == "cg"
+
+    # the PCG matvec walks the edges frame by frame: sort them by source
+    # frame once, so that every per-edge array below comes out sorted (the
+    # permutation only reorders sums)
+    plan = None
+    if cg and not motion_only:
+        order, rowptr = schur_plan(ii, valid, P)
+        ii, jj, valid = ii[order], jj[order], valid[order]
+        target, weight = target[order], weight[order]
+        plan = (jj.to(torch.int32), rowptr)
 
     frames = torch.arange(P, device=dev)
     pose_mask = (frames >= t0) & (frames < t1)
@@ -308,11 +488,39 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
 
     gi = pm_f[ii]
     gj = pm_f[jj]
-    idx_ii = _block_index(ii, ii, P6).reshape(-1)
-    idx_ij = _block_index(ii, jj, P6).reshape(-1)
-    idx_ji = _block_index(jj, ii, P6).reshape(-1)
-    idx_jj = _block_index(jj, jj, P6).reshape(-1)
+    if not cg:
+        idx_ii = _block_index(ii, ii, P6).reshape(-1)
+        idx_ij = _block_index(ii, jj, P6).reshape(-1)
+        idx_ji = _block_index(jj, ii, P6).reshape(-1)
+        idx_jj = _block_index(jj, jj, P6).reshape(-1)
 
+    def assemble(Hii, Hij, Hji, Hjj, Ei, Eij_m, Q):
+        """The reduced matrix as a flat [6P*6P] array: the pose-pair blocks
+        minus the Schur complement E Q E^T."""
+        L = torch.zeros(P6 * P6, dtype=f32, device=dev)
+        L.index_add_(0, idx_ii, Hii.reshape(-1))
+        L.index_add_(0, idx_ij, Hij.reshape(-1))
+        L.index_add_(0, idx_ji, Hji.reshape(-1))
+        L.index_add_(0, idx_jj, Hjj.reshape(-1))
+        if motion_only:
+            return L
+        Skk = torch.einsum("kah,kbh->kab", Ei * Q[:, None], Ei)
+        L.index_add_(0, _block_index(frames, frames, P6).reshape(-1),
+                     -Skk.reshape(-1))
+        Sx = torch.einsum("eah,ebh->eab", Ei[ii] * Q[ii][:, None], Eij_m)
+        L.index_add_(0, idx_ij, -Sx.reshape(-1))
+        L.index_add_(0, idx_ji, -Sx.transpose(-1, -2).reshape(-1))
+        # (jj_e1, jj_e2) pairs of edges with the same source frame
+        G = Eij_m[tbl_idx] * tbl_ok[..., None, None]        # [P,D,6,hw]
+        Spp = torch.einsum("kdah,kebh->kdeab", G * Q[:, None, None], G)
+        pj = jj[tbl_idx]
+        okrc = (tbl_ok[:, :, None] & tbl_ok[:, None, :]).to(f32)
+        L.index_add_(0, _block_index(pj[:, :, None], pj[:, None, :],
+                                     P6).reshape(-1),
+                     (-Spp * okrc[..., None, None]).reshape(-1))
+        return L
+
+    dx = None       # the PCG warm start: the previous step's solution
     for _ in range(iters):
         sys = build_edge_system(poses, disps, intrinsics, target, weight,
                                 ii, jj, valid)
@@ -325,13 +533,8 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
         b.index_add_(0, ii, sys.v[:, :6] * gi[:, None])
         b.index_add_(0, jj, sys.v[:, 6:] * gj[:, None])
 
-        L = torch.zeros(P6 * P6, dtype=f32, device=dev)
-        L.index_add_(0, idx_ii, Hii.reshape(-1))
-        L.index_add_(0, idx_ij, Hij.reshape(-1))
-        L.index_add_(0, idx_ji, Hji.reshape(-1))
-        L.index_add_(0, idx_jj, Hjj.reshape(-1))
-
         if motion_only:
+            Q = Ei = Eij_m = None
             rhs = b
         else:
             disps_flat = disps.reshape(P, hw)
@@ -350,29 +553,18 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
                 0, ii, sys.Eii) * pm_f[:, None, None]
             Eij_m = sys.Eij * gj[:, None, None]
 
-            # Schur complement E Q E^T subtracted from L
-            Skk = torch.einsum("kah,kbh->kab", Ei * Q[:, None], Ei)
-            L.index_add_(0, _block_index(frames, frames, P6).reshape(-1),
-                         -Skk.reshape(-1))
-            Sx = torch.einsum("eah,ebh->eab", Ei[ii] * Q[ii][:, None], Eij_m)
-            L.index_add_(0, idx_ij, -Sx.reshape(-1))
-            L.index_add_(0, idx_ji, -Sx.transpose(-1, -2).reshape(-1))
-            # (jj_e1, jj_e2) pairs of edges with the same source frame
-            G = Eij_m[tbl_idx] * tbl_ok[..., None, None]        # [P,D,6,hw]
-            Spp = torch.einsum("kdah,kebh->kdeab", G * Q[:, None, None], G)
-            pj = jj[tbl_idx]
-            okrc = (tbl_ok[:, :, None] & tbl_ok[:, None, :]).to(f32)
-            L.index_add_(0, _block_index(pj[:, :, None], pj[:, None, :],
-                                         P6).reshape(-1),
-                         (-Spp * okrc[..., None, None]).reshape(-1))
-
             # rhs reduction v - E Q w
             bs = torch.einsum("kah,kh->ka", Ei, Q * w_rhs)
             bx = torch.einsum("eah,eh->ea", Eij_m, (Q * w_rhs)[ii])
             rhs = b - bs - torch.zeros((P, 6), dtype=f32,
                                        device=dev).index_add_(0, jj, bx)
 
-        dx = _dense_solve(rhs, L, pm_f, lm, ep)
+        if cg:
+            dx, _ = _cg_solve(rhs, (Hii, Hij, Hji, Hjj), Ei, Eij_m, Q, ii,
+                              jj, pm_f, lm, ep, cg_iters, plan, dx)
+        else:
+            dx = _dense_solve(rhs, assemble(Hii, Hij, Hji, Hjj, Ei, Eij_m, Q),
+                              pm_f, lm, ep)
         poses = lie.retr(poses, dx)
 
         if not motion_only:
@@ -388,4 +580,3 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
     bad = overflow > 0
     nan = torch.tensor(float("nan"), device=dev)
     return torch.where(bad, nan, poses), torch.where(bad, nan, disps)
-

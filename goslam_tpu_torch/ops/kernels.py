@@ -25,13 +25,23 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
-SOURCES = {"edge_system": "edge_system.cu", "alt_corr": "alt_corr.cu"}
+SOURCES = {"edge_system": "edge_system.cu", "alt_corr": "alt_corr.cu",
+           "schur_matvec": "schur_matvec.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v"]
 
 # the alt-corr kernel is written for DROID's 128-channel features
 ALT_CORR_CHANNELS = 128
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the C entry <name>_launch of each source; the last pointer is the stream
+_ARGTYPES = {
+    "edge_system": [_PTR] * 5 + [_INT] * 3 + [_PTR] * 7,
+    "alt_corr": [_PTR] * 3 + [_INT] * 2 + [_PTR] * 3 + [_INT] * 2
+    + [_PTR] * 2,
+    "schur_matvec": [_PTR] * 7 + [_INT] * 3 + [_PTR] * 3,
+}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -90,14 +100,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(paths[name])
         fn = getattr(lib, f"{name}_launch")
         fn.restype = ctypes.c_int
-        if name == "edge_system":
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p] * 7
-        else:
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         _libs[name] = lib
     return _libs[name]
 
@@ -143,3 +146,15 @@ def alt_corr(levels, coords, ii, jj, out):
         ptrs, hs, ws, n, levels[0].shape[0], _ptr(coords), _ptr(ii),
         _ptr(jj), E, P1, _ptr(out), _stream(coords))
     _check("alt_corr", err)
+
+
+def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, yf, oc):
+    """Launch csrc/schur_matvec.cu on checked tensors: x [P,6], Ei [P,6,hw],
+    Q [P,hw], H [E,12,12] fp32, Eij [E,6,hw] bf16, jj [E] and rowptr [P+1]
+    int32 (edges sorted by source frame, all contiguous on one CUDA
+    device) into preallocated yf [P,6] and oc [E,6] fp32."""
+    P, _, hw = Ei.shape
+    err = _lib("schur_matvec").schur_matvec_launch(
+        _ptr(x), _ptr(Ei), _ptr(Q), _ptr(H), _ptr(Eij), _ptr(jj),
+        _ptr(rowptr), P, Eij.shape[0], hw, _ptr(yf), _ptr(oc), _stream(x))
+    _check("schur_matvec", err)

@@ -6,8 +6,10 @@
 Loads the YAML config chain, builds the dataset, tracks every frame,
 then runs the final global BA, fills the trajectory and writes
 ``est_poses.npy`` and ``metrics_traj.txt`` to the output directory.
-The port tracks RGB-D frames of the synthetic dataset; the other
-datasets, modes and mapping are still to be ported (ROADMAP.md).
+The port tracks RGB-D frames of the synthetic dataset, with or without
+loop closing (``tracking.frontend.enable_loop``) and however many
+keyframes the buffer holds; the other datasets, modes and mapping are
+still to be ported (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """SLAMSystem: the tracking-only RGB-D pipeline on one device.
 
-  per frame:     motion filter -> frontend (windowed BA)
+  per frame:     motion filter -> frontend (windowed BA; with
+                 ``tracking.frontend.enable_loop`` every frontend update
+                 ends in the backend's loop closing)
   per K kfs:     global dense BA (``tracking.global_ba_every``)
   terminate:     final dense BA x2, trajectory fill, ATE (Umeyama)
 
@@ -72,11 +74,11 @@ class SLAMSystem:
         if not self.only_tracking:
             raise NotImplementedError(
                 "mapping and meshing are not ported yet (ROADMAP.md, queue "
-                "A item 8); run with only_tracking")
+                "A item 1); run with only_tracking")
         if self.mode != "rgbd":
             raise NotImplementedError(
                 f"mode {self.mode!r} is not ported yet (ROADMAP.md, queue "
-                f"A); the port tracks RGB-D")
+                f"A item 5); the port tracks RGB-D")
         self.output = output or self.cfg["data"].get("output", "") or "output"
         os.makedirs(self.output, exist_ok=True)
 
@@ -96,7 +98,8 @@ class SLAMSystem:
         self.motion_filter = MotionFilter(self.net, self.video,
                                           thresh=tr["motion_filter"]["thresh"])
         self.backend = Backend(self.net, self.video, self.cfg)
-        self.frontend = Frontend(self.net, self.video, self.cfg)
+        self.frontend = Frontend(self.net, self.video, self.cfg,
+                                 loop_closing=self.backend)
         self.traj_filler = TrajectoryFiller(self.net, self.video,
                                             self.motion_filter)
 

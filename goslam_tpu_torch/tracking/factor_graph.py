@@ -9,8 +9,9 @@ Two correlation backends:
   * 'volume': all-pairs pyramids per edge slot, looked up every step
     (frontend);
   * 'alt':    on-the-fly correlation from feature pyramids with
-    edge-chunked GRU updates (global BA, ``update_lowmem``).  On CUDA the
-    alt-corr is the hand-written kernel ``csrc/alt_corr.cu``.
+    edge-chunked GRU updates (global BA and loop closing,
+    ``update_lowmem``).  On CUDA the alt-corr is the hand-written kernel
+    ``csrc/alt_corr.cu``.
 
 Slots are updated in place.  Edges are computed over every slot and
 masked by validity, so results do not depend on which slots are free.
@@ -39,6 +40,10 @@ DEG_BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 # edges per GraphAgg block in the global aggregation (bounds the
 # [block, h8, w8, 128] fp32 transient)
 AGG_BLOCK = 3072
+# global-BA windows from this many poses on are solved with PCG, with this
+# iteration budget per Gauss-Newton step
+CG_MIN_POSES = 192
+CG_ITERS = 32
 
 
 def resolve_dtype(name) -> torch.dtype:
@@ -274,7 +279,8 @@ class FactorGraph:
         return bucket(deg, DEG_BUCKETS)
 
     def _window_ba(self, P, base, damping_w, ii_ba, jj_ba, tg, wt, ok,
-                   t0, t1, iters, lm, ep, motion_only, max_deg):
+                   t0, t1, iters, lm, ep, motion_only, max_deg,
+                   solver="chol"):
         """DBA over window [base, base + P) of the video, in place."""
         v = self.video
         win = slice(base, base + P)
@@ -283,7 +289,7 @@ class FactorGraph:
             v.poses[win], v.disps[win], v.intrinsics, v.disps_sens[win],
             tg, wt, eta, ii_ba, jj_ba, ok, t0 - base, t1 - base,
             iters=iters, lm=lm, ep=ep, motion_only=motion_only,
-            max_deg=max_deg)
+            max_deg=max_deg, solver=solver, cg_iters=CG_ITERS)
         v.poses[win] = poses_w
         v.disps[win] = disps_w
         return disps_w
@@ -410,11 +416,10 @@ class FactorGraph:
     def _lowmem_step(self, P, Tb, t0, t1, iters, lm, ep, motion_only):
         """One step, the JAX package's ``_lowmem_kernel``: alt-corr GRU
         over the edge chunks (a Python loop updating the slabs in place),
-        whole-graph GraphAgg, then DBA over frames [0, P)."""
-        if P >= 192:
-            raise NotImplementedError(
-                "global BA windows of >= 192 poses need the PCG solver, "
-                "which is not ported yet (ROADMAP.md, queue A item 7)")
+        whole-graph GraphAgg, then DBA over frames [0, P).  Windows of
+        CG_MIN_POSES poses or more take the matrix-free PCG solver: the
+        dense Cholesky solve dominates beyond a few hundred poses."""
+        solver = "cg" if P >= CG_MIN_POSES else "chol"
         v = self.video
         cdt = self.cdt
         h8, w8 = self.h8, self.w8
@@ -457,7 +462,7 @@ class FactorGraph:
 
         self._window_ba(P, 0, damping_w, ii_local, jj_s.clamp(0, P - 1),
                         self.target, self.weight, valid, t0, t1, iters, lm,
-                        ep, motion_only, max_deg)
+                        ep, motion_only, max_deg, solver=solver)
 
     def _agg_eta_from_nets(self, ii_loc, valid, P):
         """Whole-graph GraphAgg: every edge's final hidden state through

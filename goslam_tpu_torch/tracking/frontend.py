@@ -3,9 +3,9 @@
 The system initializes after `warmup` keyframes with neighborhood and
 proximity edges and 8+8 update iterations; afterwards every new keyframe
 triggers age pruning, proximity edge proposal, iters1 update steps, a
-keyframe-distance test (removing a redundant keyframe) and iters2 more
-update steps.  Loop closing inside the frontend (``enable_loop``) is not
-ported yet.
+keyframe-distance test (removing a redundant keyframe) and then either
+loop closing (``enable_loop``: ``Backend.loop_ba`` over all keyframes,
+seeded with this graph's live edges) or iters2 more update steps.
 """
 from __future__ import annotations
 
@@ -16,14 +16,10 @@ from .video import VideoBuffer
 
 
 class Frontend:
-    def __init__(self, net, video: VideoBuffer, cfg: dict):
+    def __init__(self, net, video: VideoBuffer, cfg: dict,
+                 loop_closing=None):
         t = cfg["tracking"]
         f = t["frontend"]
-        if f.get("enable_loop", False):
-            raise NotImplementedError(
-                "frontend loop closing (Backend.loop_ba) is not ported yet "
-                "(ROADMAP.md, queue A item 7); set tracking.frontend."
-                "enable_loop: False")
         self.video = video
         self.warmup = t["warmup"]
         self.beta = t["beta"]
@@ -36,6 +32,11 @@ class Frontend:
         self.frontend_thresh = f["thresh"]
         self.frontend_radius = f["radius"]
         self.frontend_nms = f["nms"]
+        # the backend whose loop_ba closes loops, and the keyframe count at
+        # its last call
+        self.enable_loop = f.get("enable_loop", False)
+        self.loop_closing = loop_closing
+        self.last_loop_t = -1
 
         self.graph = FactorGraph(
             video, net, max_factors=f["max_factors"], corr_impl="volume",
@@ -116,6 +117,13 @@ class Frontend:
         if d < self.keyframe_thresh:
             self.graph.rm_keyframe(self.t1 - 2)
             self.t1 -= 1
+        elif (self.enable_loop and self.loop_closing is not None
+              and self.video.counter > self.frontend_window):
+            cur_t = self.video.counter
+            self.loop_closing.loop_ba(t_start=0, t_end=cur_t,
+                                      steps=self.iters2, motion_only=False,
+                                      local_graph=self.graph)
+            self.last_loop_t = cur_t
         else:
             for _ in range(self.iters2):
                 self.graph.update(use_inactive=True)

@@ -1,5 +1,6 @@
 """Dense bundle adjustment of the port (ops/dba.py, Cholesky path)
-against the JAX package's ``dba.ba`` on tests/test_dba.py-style problems.
+against the JAX package's ``dba.ba`` on tests/test_dba.py-style problems
+(the PCG path: tests/test_torch_cg.py).
 
 A consistent synthetic scene (poses and disparities) is reprojected into
 flow targets; both packages start from the same perturbed state, made
@@ -184,9 +185,3 @@ def test_degree_check_and_overflow_poison(rng):
         dba.ba(*prob, t0=1, t1=5, max_deg=2)
     p, d = dba._ba_impl(*prob, 1, 5, 1, 1e-4, 0.1, False, 2)
     assert torch.isnan(p).all() and torch.isnan(d).all()
-
-
-def test_cg_solver_is_not_ported(rng):
-    prob = [_t(a) for a in _problem(rng)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dba.ba(*prob, t0=1, t1=5, max_deg=8, solver="cg")

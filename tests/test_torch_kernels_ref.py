@@ -1,5 +1,6 @@
-"""The plain versions of the port's two CUDA kernels against the JAX
-package's references, on the CPU.
+"""The plain versions of the port's CUDA kernels against the JAX
+package's references, on the CPU (K3, the Schur matvec, is held to the
+JAX package in tests/test_torch_cg.py).
 
   K1 ``dba.build_edge_system_plain`` (plain version of csrc/edge_system.cu)
      vs JAX ``dba.build_edge_system`` and the Pallas kernel
@@ -155,13 +156,25 @@ def test_alt_corr_clamps_frame_indices_like_a_jax_gather(rng):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("which", ["edge_system", "alt_corr"])
+@pytest.mark.parametrize("which", ["edge_system", "alt_corr",
+                                   "schur_matvec"])
 def test_wrappers_never_fall_back_off_the_cpu(rng, which):
     """A tensor that is not on the CPU goes to the kernel or raises:
     meta tensors reach the kernel path, which cannot run here."""
     if which == "edge_system":
         prob = [_t(a).to("meta") for a in _edge_problem(rng)]
         call = lambda: dba.build_edge_system(*prob)
+    elif which == "schur_matvec":
+        P, E, hw = 4, 6, 16
+        args = [torch.zeros(shape, dtype=dt, device="meta")
+                for shape, dt in (((P, 6), torch.float32),
+                                  ((P, 6, hw), torch.float32),
+                                  ((P, hw), torch.float32),
+                                  ((E, 12, 12), torch.float32),
+                                  ((E, 6, hw), torch.bfloat16),
+                                  ((E,), torch.int32),
+                                  ((P + 1,), torch.int32))]
+        call = lambda: dba.schur_matvec(*args)
     else:
         _, fp, coords, ii, jj = _corr_problem(rng)
         args = ([lv.to("meta") for lv in fp], _t(coords).to("meta"),

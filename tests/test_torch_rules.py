@@ -75,7 +75,7 @@ def test_run_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
                   "--max_frames", "2"])
 
 
-@pytest.mark.parametrize("what", ["mono", "mapping", "loop"])
+@pytest.mark.parametrize("what", ["mono", "mapping"])
 def test_unported_paths_raise(what, tmp_path):
     """What this slice does not port says so instead of running
     something else."""
@@ -83,12 +83,25 @@ def test_unported_paths_raise(what, tmp_path):
     cfg = _cfg()
     if what == "mono":
         cfg["mode"] = "mono"
-    elif what == "mapping":
-        cfg["only_tracking"] = False
     else:
-        cfg["tracking"]["frontend"]["enable_loop"] = True
+        cfg["only_tracking"] = False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+
+
+def test_loop_closing_config_builds_a_system(tmp_path):
+    """``enable_loop: True`` is the default of the configuration: the
+    frontend gets the backend as its loop closer."""
+    from goslam_tpu_torch.config import default_config
+    from goslam_tpu_torch.system import SLAMSystem
+    assert default_config()["tracking"]["frontend"]["enable_loop"] is True
+    cfg = _cfg()
+    cfg["tracking"]["frontend"]["enable_loop"] = True
+    slam = SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+    assert slam.frontend.enable_loop
+    assert slam.frontend.loop_closing is slam.backend
+    assert slam.frontend.last_loop_t == -1
+    assert slam.backend.total_loop_accepts == 0
 
 
 def test_global_ba_failure_propagates(tmp_path):
@@ -120,7 +133,8 @@ def test_run_entry_point_on_the_cpu(tmp_path):
          "--only_tracking", "--device", "cpu", "--output", str(tmp_path),
          "--max_frames", "10", "--image_size", "64", "96"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=ROOT))
+        # two threads: the suite's other workers share the machine
+        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2"))
     assert out.returncode == 0, out.stderr[-3000:]
     est = np.load(tmp_path / "est_poses.npy")
     assert est.shape == (10, 4, 4) and np.isfinite(est).all()
