@@ -8,9 +8,15 @@
 Phases, each of which exits non-zero on failure (nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      goslam_tpu_torch/csrc with nvcc (one process per source, in parallel);
-  2. check each kernel against its plain PyTorch version at a small shape,
-     and hold dba.ba with the PCG solver (whose matvec is the schur_matvec
-     kernel) against the Cholesky solver on a band graph of 192 poses;
+  2. check each kernel against its plain PyTorch version at small shapes:
+     alt_corr at pixel counts that are no multiple of its 64-pixel tile
+     and at adversarial coordinates (NaN, +-1e6, tiles whose windows all
+     miss the image, windows at the image border, windows over the whole
+     frame), schur_matvec with frames of degree 0, a hub frame that 40
+     edges point into, a hub frame that 60 edges leave, and hw = 100;
+     fail on register spills in any kernel; and hold dba.ba with the PCG
+     solver (whose matvec is the schur_matvec kernel) against the
+     Cholesky solver on a band graph of 192 poses;
   3. the paths, each RGB-D tracking only on the synthetic scene with
      checkpoints/droid_synthetic.ckpt, through SLAMSystem.track /
      terminate, with the kernels' launch counts reset just before the run
@@ -26,7 +32,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
        loop-160-off  loop-160 without loop closing (reported beside it);
        loop-160-240  loop-160 at 240x320 (finite, all kernels launched);
   4. each kernel against its plain version at every shape a path gave it,
-     with the kernel's device time (CUDA graph replay), the wrapper's and
+     with the kernel's device time (CUDA graph replay; for schur_matvec the
+     whole matvec, scatter to jj included, one launch), the wrapper's and
      the plain version's time, and the bound (the least time the card
      could take for the same work) from this run's inputs.
 
@@ -40,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -199,29 +207,82 @@ def check_edge_system(gen, E, ht8, wd8, timing: bool):
     return res
 
 
-def check_alt_corr(gen, E, T, ht8, wd8, timing: bool):
-    from goslam_tpu_torch.ops import corr, kernels, projective
+# lookup coordinates of the alt-corr checks: the main path's kind, and the
+# kinds of tests/test_torch_kernels_ref.py that test the kernel's reduction
+# of a 64-pixel tile's windows to the box of target pixels they touch
+CORR_KINDS = ("flow", "smooth", "spread", "nan", "far", "tile_out",
+              "border")
+
+
+def alt_corr_coords(gen, kind: str, E: int, ht8: int, wd8: int):
+    """flow: the pixel grid moved by noise of 3 px, each pixel its own;
+    smooth: the grid moved by one shift per edge; spread: uniform over
+    the frame and a margin; nan: some x, some y, some both NaN; far: some
+    coordinates at +-1e6; tile_out: the first 64 pixels of every edge with
+    windows that miss the image at every level; border: values at and
+    around the last one whose window still touches the image, on each
+    side, at each level."""
+    from goslam_tpu_torch.ops import projective
+    grid = projective.coords_grid(ht8, wd8)
+    c = grid + 3.0 * torch.randn((E, ht8, wd8, 2), generator=gen)
+    flat = c.view(-1, 2)
+    if kind == "smooth":
+        c = grid + 3.0 * torch.randn((E, 1, 1, 2), generator=gen)
+    elif kind == "spread":
+        size = torch.tensor([wd8, ht8], dtype=torch.float32)
+        c = (size + 5) * torch.rand(c.shape, generator=gen) - 3
+    elif kind == "nan":
+        flat[torch.rand(flat.shape, generator=gen) < 0.08] = float("nan")
+    elif kind == "far":
+        pick = torch.rand(flat.shape, generator=gen) < 0.3
+        sign = torch.randint(0, 2, (int(pick.sum()),), generator=gen) * 2 - 1
+        flat[pick] = 1e6 * sign.float()
+    elif kind == "tile_out":
+        tile = c.view(E, -1, 2)[:, :64]
+        tile.copy_(-40 - 160 * torch.rand(tile.shape, generator=gen))
+        right = tile[1::2, :, 0]
+        right.copy_(8 * (wd8 + 4) + 300 * torch.rand(right.shape,
+                                                     generator=gen))
+    elif kind == "border":
+        for a, size in enumerate((wd8, ht8)):
+            vals = torch.tensor([s * 2 ** l + d for l in range(4)
+                                 for s in (-4, -3, size + 2, size + 3)
+                                 for d in (-0.25, 0.0, 0.25)])
+            flat[:, a] = vals[torch.randint(0, len(vals), (flat.shape[0],),
+                                            generator=gen)]
+    elif kind != "flow":
+        raise ValueError(kind)
+    return c
+
+
+def check_alt_corr(gen, E, T, ht8, wd8, timing: bool, kind: str = "flow"):
+    from goslam_tpu_torch.ops import corr, kernels
     dev = "cuda"
     fmaps = torch.randn((T, ht8, wd8, 128), generator=gen).to(dev)
     levels = corr.build_feature_pyramid(fmaps)
     ii = torch.randint(0, T, (E,), generator=gen).to(dev)
     jj = torch.randint(0, T, (E,), generator=gen).to(dev)
-    grid = projective.coords_grid(ht8, wd8, dev)
-    coords = grid + 3.0 * torch.randn((E, ht8, wd8, 2),
-                                      generator=gen).to(dev)
+    coords = alt_corr_coords(gen, kind, E, ht8, wd8).to(dev)
     out = corr.alt_corr(levels, coords, ii, jj)
     ref = corr.alt_corr_plain(levels, coords, ii, jj)
     torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise SystemExit("alt_corr: non-finite output")
-    d = (out - ref).abs()
+    # a NaN coordinate makes its pixel's outputs NaN in both, and nothing
+    # else may be NaN or infinite
+    nan_px = torch.isnan(coords).any(-1)[..., None].expand_as(ref)
+    if not (torch.equal(torch.isnan(out), nan_px)
+            and torch.equal(torch.isnan(ref), nan_px)
+            and torch.isfinite(out[~nan_px]).all()):
+        raise SystemExit(f"alt_corr {kind}: non-finite output where the "
+                         f"coordinates are finite, or finite where not")
+    d = (out - ref).abs()[~nan_px]
     err = float(d.max())
     # both sum exact bf16 x bf16 products in fp32, in another order
-    tol = 1e-4 + 1e-4 * ref.abs()
+    tol = 1e-4 + 1e-4 * ref[~nan_px].abs()
     if bool((d > tol).any()):
-        raise SystemExit(f"alt_corr E={E} hw={ht8 * wd8}: max error "
+        raise SystemExit(f"alt_corr {kind} E={E} hw={ht8 * wd8}: max error "
                          f"{err:.3g} beyond 1e-4 + 1e-4 |plain|")
-    res = {"E": E, "T": T, "hw": ht8 * wd8, "max_abs_err": err}
+    res = {"E": E, "T": T, "hw": ht8 * wd8, "kind": kind,
+           "max_abs_err": err}
     if timing:
         kin = corr.alt_corr_kernel_inputs(levels, coords, ii, jj)
         res["ms"] = graph_ms(lambda: kernels.alt_corr(*kin, out))
@@ -251,10 +312,14 @@ def check_alt_corr(gen, E, T, ht8, wd8, timing: bool):
     return res
 
 
-def schur_problem(gen, P: int, E: int, hw: int, n_valid: int):
+def schur_problem(gen, P: int, E: int, hw: int, n_valid: int,
+                  hub_in: int = 0, hub_out: int = 0):
     """Operands of the Schur matvec as loop-160's global BA lays them
     out: n_valid of the E edge slots hold edges, whose source frames are
-    the first 5/6 of the window (160 keyframes in a window of 192)."""
+    the first 5/6 of the window (160 keyframes in a window of 192; the
+    frames past them have no edges).  `hub_in` of the edges go into
+    frame 0 and the next `hub_out` leave frame 1.  Returns the operands
+    of dba.schur_matvec, scratch excepted."""
     from goslam_tpu_torch.ops import dba
     dev = "cuda"
     used = max(1, P * 5 // 6)
@@ -262,18 +327,24 @@ def schur_problem(gen, P: int, E: int, hw: int, n_valid: int):
     valid[torch.randperm(E, generator=gen)[:n_valid]] = True
     ii = torch.randint(0, used, (E,), generator=gen)
     jj = torch.randint(0, used, (E,), generator=gen)
-    plan = dba.schur_plan(ii.to(dev), valid.to(dev), P)
+    picked = torch.nonzero(valid)[:, 0]
+    jj[picked[:hub_in]] = 0
+    ii[picked[hub_in:hub_in + hub_out]] = 1
+    plan = dba.schur_plan(ii.to(dev), jj.to(dev), valid.to(dev), P)
     rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
     return (rnd(P, 6), rnd(P, 6, hw), torch.rand((P, hw), generator=gen).to(dev),
             rnd(E, 12, 12), rnd(E, 6, hw).to(torch.bfloat16),
-            jj.to(dev)[plan.order].to(torch.int32).contiguous(), plan.rowptr)
+            jj.to(dev)[plan.order].to(torch.int32).contiguous(), plan.rowptr,
+            plan.colptr, plan.cidx)
 
 
-def check_schur_matvec(gen, P, E, hw, n_valid, timing: bool):
-    from goslam_tpu_torch.ops import dba, kernels
-    args = schur_problem(gen, P, E, hw, n_valid)
-    out = dba.schur_matvec(*args)
-    ref = dba.schur_matvec_plain(*args)
+def check_schur_matvec(gen, P, E, hw, n_valid, timing: bool,
+                       hub_in: int = 0, hub_out: int = 0):
+    from goslam_tpu_torch.ops import dba
+    args = schur_problem(gen, P, E, hw, n_valid, hub_in, hub_out)
+    work = dba.schur_work(P, E, "cuda")
+    out = dba.schur_matvec(*args, work=work).clone()
+    ref = dba.schur_matvec_plain(*args[:7])
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise SystemExit("schur_matvec: non-finite output")
@@ -284,20 +355,20 @@ def check_schur_matvec(gen, P, E, hw, n_valid, timing: bool):
     if rel > 1e-4:
         raise SystemExit(f"schur_matvec P={P} E={E} hw={hw}: relative "
                          f"error {rel:.3g} > 1e-4")
-    # no atomics in the kernel: two launches give the same bits
-    yf = [torch.empty((P, 6), device="cuda") for _ in range(2)]
-    oc = [torch.empty((E, 6), device="cuda") for _ in range(2)]
-    for k in range(2):
-        kernels.schur_matvec(*args, yf[k], oc[k])
-    if not (torch.equal(yf[0], yf[1]) and torch.equal(oc[0], oc[1])):
+    # no atomics in the matvec, scatter to jj included: two launches give
+    # the same bits
+    again = dba.schur_matvec(*args, work=dba.schur_work(P, E, "cuda"))
+    if not torch.equal(out, again):
         raise SystemExit("schur_matvec: two launches differ")
     res = {"P": P, "E": E, "hw": hw, "n_valid": n_valid,
+           "hub_in": hub_in, "hub_out": hub_out,
            "max_abs_err": err, "max_rel_err": rel}
     if timing:
-        res["ms"] = graph_ms(lambda: kernels.schur_matvec(*args, yf[0],
-                                                          oc[0]))
-        res["wrapper_ms"] = cuda_ms(lambda: dba.schur_matvec(*args))
-        res["plain_ms"] = cuda_ms(lambda: dba.schur_matvec_plain(*args))
+        # the whole matvec: one launch, scatter to jj included
+        res["ms"] = graph_ms(lambda: dba.schur_matvec(*args, work=work))
+        res["wrapper_ms"] = cuda_ms(lambda: dba.schur_matvec(*args,
+                                                             work=work))
+        res["plain_ms"] = cuda_ms(lambda: dba.schur_matvec_plain(*args[:7]))
         # read once: x, Ei, Q, rowptr, and H, Eij (bf16), jj of the valid
         # edges; written once: yf and oc
         nbytes = P * 6 * 4 + P * 6 * hw * 4 + P * hw * 4 + (P + 1) * 4 \
@@ -689,14 +760,30 @@ def main(argv=None) -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", line)
+                if spills and spills.groups() != ("0", "0"):
+                    raise SystemExit(f"register spills in {p}: {line}")
 
     gen = torch.Generator().manual_seed(0)
     print("small check edge_system:",
           check_edge_system(gen, 16, 8, 12, False), flush=True)
-    print("small check alt_corr:",
-          check_alt_corr(gen, 8, 4, 8, 12, False), flush=True)
-    print("small check schur_matvec:",
-          check_schur_matvec(gen, 16, 64, 96, 50, False), flush=True)
+    # alt_corr at every kind of coordinates, at pixel counts that are no
+    # multiple of its 64-pixel tile (96 and 300, four levels)
+    for kind in CORR_KINDS:
+        for E, T, h8, w8 in ((8, 4, 8, 12), (4, 6, 15, 20)):
+            print("small check alt_corr:",
+                  check_alt_corr(gen, E, T, h8, w8, False, kind), flush=True)
+    # schur_matvec with frames of degree 0 (past the first 5/6), a hub
+    # frame that 40 edges point into, one that 60 edges leave (more than
+    # the block has warps), and hw = 100, no multiple of 8
+    for P, E, hw, n_valid, hub_in, hub_out in ((16, 64, 96, 50, 0, 0),
+                                               (48, 128, 96, 100, 40, 0),
+                                               (48, 128, 96, 100, 0, 60),
+                                               (48, 128, 100, 110, 40, 60)):
+        print("small check schur_matvec:",
+              check_schur_matvec(gen, P, E, hw, n_valid, False, hub_in,
+                                 hub_out), flush=True)
     for ht8, wd8 in ((8, 12), (16, 24)):
         res = check_cg_vs_chol(ht8, wd8)
         say(f"cg vs chol: {json.dumps(res)}")

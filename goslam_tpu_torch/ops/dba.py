@@ -296,15 +296,25 @@ class SchurPlan(NamedTuple):
     """Edge order of ``schur_matvec``, made once per ``ba`` call."""
     order: torch.Tensor     # [E] permutation: by source frame, invalid last
     rowptr: torch.Tensor    # [P + 1] int32: frame k owns rowptr[k:k+2]
+    colptr: torch.Tensor    # [P + 1] int32: edges into j at colptr[j:j+2]
+    cidx: torch.Tensor      # [E] int32: positions in `order` of the valid
+                            # edges by target frame; past colptr[P] unused
 
 
-def schur_plan(ii, valid, P: int) -> SchurPlan:
+def schur_plan(ii, jj, valid, P: int) -> SchurPlan:
     """Sort the edges by source frame (stable, so the plan is the same on
-    every device), invalid edges past the end where nothing visits them."""
+    every device), invalid edges past the end where nothing visits them;
+    then list the valid ones again by target frame (stable), for the
+    matvec's scatter to jj without atomics."""
     key = torch.where(valid, ii, torch.full_like(ii, P))
     ks, order = torch.sort(key, stable=True)
-    rowptr = torch.searchsorted(ks, torch.arange(P + 1, device=ii.device))
-    return SchurPlan(order, rowptr.to(torch.int32))
+    frames = torch.arange(P + 1, device=ii.device)
+    rowptr = torch.searchsorted(ks, frames)
+    tkey = torch.where(valid[order], jj[order], torch.full_like(jj, P))
+    tks, cidx = torch.sort(tkey, stable=True)
+    colptr = torch.searchsorted(tks, frames)
+    return SchurPlan(order, rowptr.to(torch.int32), colptr.to(torch.int32),
+                     cidx.to(torch.int32))
 
 
 def schur_matvec_plain(x, Ei, Q, H, Eij, jj, rowptr) -> torch.Tensor:
@@ -333,13 +343,33 @@ def schur_matvec_plain(x, Ei, Q, H, Eij, jj, rowptr) -> torch.Tensor:
                        - torch.einsum("eah,eh->ea", G, u[ii]))
 
 
-def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr) -> torch.Tensor:
-    """One matvec of the reduced camera system (see schur_matvec_plain):
-    CUDA tensors launch the kernel csrc/schur_matvec.cu, whose per-edge
-    rows are then scatter-added to their target frames; CPU tensors take
-    the plain version."""
+class SchurWork(NamedTuple):
+    """What the Schur-matvec kernel writes, made once per Gauss-Newton
+    step and reused by every matvec of its PCG solve.  ``schur_matvec``
+    returns ``y`` itself: the next call with the same work overwrites
+    it, so a caller uses the result before that call or copies it."""
+    yf: torch.Tensor        # [P, 6] each source frame's own rows
+    oc: torch.Tensor        # [E, 6] each edge's rows for its target frame
+    y: torch.Tensor         # [P, 6] the result
+
+
+def schur_work(P: int, E: int, device) -> SchurWork:
+    return SchurWork(*[torch.empty(shape, dtype=torch.float32, device=device)
+                       for shape in ((P, 6), (E, 6), (P, 6))])
+
+
+def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, colptr, cidx,
+                 work: SchurWork | None) -> torch.Tensor:
+    """One matvec of the reduced camera system (see schur_matvec_plain;
+    colptr/cidx are ``schur_plan``'s target index).  CUDA tensors launch
+    the kernel csrc/schur_matvec.cu once, scatter to jj included, into
+    ``work`` (``schur_work``), and return ``work.y``; CPU tensors take the
+    plain version and need no work."""
     if x.device.type == "cpu":
         return schur_matvec_plain(x, Ei, Q, H, Eij, jj, rowptr)
+    if work is None:
+        raise ValueError("schur matvec: a CUDA matvec writes into "
+                         "work=schur_work(P, E, device)")
     P, _, hw = Ei.shape
     E = Eij.shape[0]
     for name, t, shape, dtype in (
@@ -349,26 +379,31 @@ def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr) -> torch.Tensor:
             ("H", H, (E, 12, 12), torch.float32),
             ("Eij", Eij, (E, 6, hw), torch.bfloat16),
             ("jj", jj, (E,), torch.int32),
-            ("rowptr", rowptr, (P + 1,), torch.int32)):
+            ("rowptr", rowptr, (P + 1,), torch.int32),
+            ("colptr", colptr, (P + 1,), torch.int32),
+            ("cidx", cidx, (E,), torch.int32),
+            ("yf", work.yf, (P, 6), torch.float32),
+            ("oc", work.oc, (E, 6), torch.float32),
+            ("y", work.y, (P, 6), torch.float32)):
         if (t.shape != shape or t.dtype != dtype or t.device != x.device
                 or not t.is_contiguous()):
             raise ValueError(
                 f"schur matvec: {name} must be contiguous {dtype} "
                 f"{list(shape)} on {x.device}, got {t.dtype} "
                 f"{list(t.shape)} on {t.device}")
-    yf = torch.empty((P, 6), dtype=torch.float32, device=x.device)
-    oc = torch.empty((E, 6), dtype=torch.float32, device=x.device)
-    kernels.schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, yf, oc)
-    return yf.index_add_(0, jj, oc)
+    if H.data_ptr() % 16:
+        raise ValueError("schur matvec: H must be 16-byte aligned")
+    kernels.schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, colptr, cidx, *work)
+    return work.y
 
 
 def _cg_solve(rhs, Hblocks, Ei, Eij_m, Q, ii, jj, pm_f, lm: float,
               ep: float, cg_iters: int, plan, x0):
     """Matrix-free PCG on the reduced system: block-Jacobi preconditioner
     ``Dg + diag(ep + lm diag(Dg))`` (identity on fixed poses), damping
-    applied outside the matvec.  ``plan`` is (jj int32, rowptr) of the
-    sorted edges, or None for motion-only BA, whose matvec is the
-    pose-Hessian part alone.  Returns (dx, iterations taken)."""
+    applied outside the matvec.  ``plan`` is (jj int32, rowptr, colptr,
+    cidx) of the sorted edges, or None for motion-only BA, whose matvec is
+    the pose-Hessian part alone.  Returns (dx, iterations taken)."""
     Hii, Hij, Hji, Hjj = Hblocks
     P = rhs.shape[0]
     eye6 = torch.eye(6, dtype=rhs.dtype, device=rhs.device)
@@ -387,18 +422,21 @@ def _cg_solve(rhs, Hblocks, Ei, Eij_m, Q, ii, jj, pm_f, lm: float,
     Minv = _inv6(Mb)
 
     if plan is not None:
-        # the operands of the matvec, packed once per Gauss-Newton step;
-        # Eij travels as bf16 as in the TPU kernel
-        jj32, rowptr = plan
+        # the operands of the matvec and the kernel's scratch, made once
+        # per Gauss-Newton step; Eij travels as bf16 as in the TPU kernel
+        jj32, rowptr, colptr, cidx = plan
         Hm = torch.cat([torch.cat([Hii, Hij], dim=2),
                         torch.cat([Hji, Hjj], dim=2)], dim=1).contiguous()
         Eij_k = Eij_m.to(torch.bfloat16).contiguous()
         Ei_k, Q_k = Ei.contiguous(), Q.contiguous()
+        work = None if rhs.device.type == "cpu" else schur_work(
+            P, Eij_k.shape[0], rhs.device)
 
     def matvec(x):
         xm = x * pm_f[:, None]
         if plan is not None:
-            yA = schur_matvec(xm, Ei_k, Q_k, Hm, Eij_k, jj32, rowptr)
+            yA = schur_matvec(xm, Ei_k, Q_k, Hm, Eij_k, jj32, rowptr,
+                              colptr, cidx, work)
         else:
             xi, xj = xm[ii], xm[jj]
             yA = torch.zeros_like(xm)
@@ -471,10 +509,10 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
     # permutation only reorders sums)
     plan = None
     if cg and not motion_only:
-        order, rowptr = schur_plan(ii, valid, P)
+        order, rowptr, colptr, cidx = schur_plan(ii, jj, valid, P)
         ii, jj, valid = ii[order], jj[order], valid[order]
         target, weight = target[order], weight[order]
-        plan = (jj.to(torch.int32), rowptr)
+        plan = (jj.to(torch.int32), rowptr, colptr, cidx)
 
     frames = torch.arange(P, device=dev)
     pose_mask = (frames >= t0) & (frames < t1)

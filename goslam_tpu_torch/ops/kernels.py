@@ -40,7 +40,7 @@ _ARGTYPES = {
     "edge_system": [_PTR] * 5 + [_INT] * 3 + [_PTR] * 7,
     "alt_corr": [_PTR] * 3 + [_INT] * 2 + [_PTR] * 3 + [_INT] * 2
     + [_PTR] * 2,
-    "schur_matvec": [_PTR] * 7 + [_INT] * 3 + [_PTR] * 3,
+    "schur_matvec": [_PTR] * 9 + [_INT] * 4 + [_PTR] * 4,
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -148,13 +148,19 @@ def alt_corr(levels, coords, ii, jj, out):
     _check("alt_corr", err)
 
 
-def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, yf, oc):
-    """Launch csrc/schur_matvec.cu on checked tensors: x [P,6], Ei [P,6,hw],
-    Q [P,hw], H [E,12,12] fp32, Eij [E,6,hw] bf16, jj [E] and rowptr [P+1]
-    int32 (edges sorted by source frame, all contiguous on one CUDA
-    device) into preallocated yf [P,6] and oc [E,6] fp32."""
+def schur_matvec(x, Ei, Q, H, Eij, jj, rowptr, colptr, cidx, yf, oc, y):
+    """Launch csrc/schur_matvec.cu (one cooperative launch for the whole
+    matvec) on checked tensors: x [P,6], Ei [P,6,hw], Q [P,hw], H [E,12,12]
+    fp32, Eij [E,6,hw] bf16, jj [E] and rowptr [P+1] int32 (edges sorted by
+    source frame), colptr [P+1] and cidx [E] int32 (the valid edges by
+    target frame), all contiguous on one CUDA device, into the scratch
+    yf [P,6] and oc [E,6] and the output y [P,6], fp32."""
     P, _, hw = Ei.shape
+    # 16-byte row loads when every row starts on a 16-byte boundary
+    vec = int(hw % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (Ei, Q, Eij)))
     err = _lib("schur_matvec").schur_matvec_launch(
         _ptr(x), _ptr(Ei), _ptr(Q), _ptr(H), _ptr(Eij), _ptr(jj),
-        _ptr(rowptr), P, Eij.shape[0], hw, _ptr(yf), _ptr(oc), _stream(x))
+        _ptr(rowptr), _ptr(colptr), _ptr(cidx), P, Eij.shape[0], hw, vec,
+        _ptr(yf), _ptr(oc), _ptr(y), _stream(x))
     _check("schur_matvec", err)

@@ -54,19 +54,73 @@ def _t(a):
 # (a) the matvec
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("ref", ["xla", "pallas_interpret"])
-def test_schur_matvec_plain_matches_jax(rng, ref):
-    """The problem of tests/test_pallas_kernels.py: random degree 1-4 per
-    frame, some edges invalid, Eij rounded to bf16."""
-    P, hw, fb, max_deg = 16, 96, 8, 4
-    ii, jj = [], []
-    for k in range(P):
-        for j in rng.choice(P, rng.integers(1, max_deg + 1), replace=False):
+def _schur_graph(rng, kind):
+    """Edge lists (ii, jj, valid) over P = 16 frames, at most 4 edges out
+    of any frame.  "random": the problem of tests/test_pallas_kernels.py,
+    degree 1-4 per frame, some edges invalid.  "hub": frame 0 receives 35
+    edges, frame 5 has none, two edges are invalid and four padded slots
+    with stale endpoints (the hub and frame 5 among them) close the list."""
+    P, ii, jj = 16, [], []
+    if kind == "random":
+        for k in range(P):
+            for j in rng.choice(P, rng.integers(1, 5), replace=False):
+                ii.append(k)
+                jj.append(int(j))
+        valid = rng.random(len(ii)) > 0.15
+        return np.asarray(ii), np.asarray(jj), valid, P
+    others = [k for k in range(1, P) if k != 5]
+    for k in others:
+        for _ in range(2 + k % 2):
             ii.append(k)
-            jj.append(int(j))
-    ii, jj = np.asarray(ii, np.int32), np.asarray(jj, np.int32)
+            jj.append(0)
+        ii.append(k)
+        jj.append(int(rng.choice([f for f in others if f != k])))
+    ii += [0, 0]
+    jj += [1, 2]
+    valid = np.ones(len(ii), bool)
+    valid[[3, 17]] = False
+    ii += [5, 0, 9, 5]
+    jj += [0, 5, 5, 5]
+    valid = np.append(valid, np.zeros(4, bool))
+    return np.asarray(ii), np.asarray(jj), valid, P
+
+
+@pytest.mark.parametrize("graph", ["random", "hub"])
+def test_schur_plan_target_index(rng, graph):
+    """schur_plan's second index, the scatter of the matvec to jj: every
+    valid edge once, under its target frame, in source order; invalid
+    edges nowhere; the edge order itself is the JAX plan's."""
+    ii, jj, valid, P = _schur_graph(rng, graph)
+    order = np.asarray(jpk.schur_matvec_plan(
+        jnp.asarray(ii, jnp.int32), jnp.asarray(jj, jnp.int32),
+        jnp.asarray(valid), P, 4, 8)[0])
+    plan = dba.schur_plan(_t(ii), _t(jj), _t(valid), P)
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    jj_s, valid_s = jj[order], valid[order]
+    rowptr, colptr = plan.rowptr.numpy(), plan.colptr.numpy()
+    cidx = plan.cidx.numpy()
+    assert plan.colptr.dtype == plan.cidx.dtype == torch.int32
+    assert cidx.shape == (len(ii),)
+    assert colptr[0] == 0 and colptr[P] == rowptr[P] == valid.sum()
+    for j in range(P):
+        want = [e for e in range(len(ii)) if valid_s[e] and jj_s[e] == j]
+        np.testing.assert_array_equal(cidx[colptr[j]:colptr[j + 1]], want)
+    assert sorted(cidx[:colptr[P]]) == list(np.flatnonzero(valid_s))
+    if graph == "hub":
+        assert colptr[1] - colptr[0] >= 30
+        assert colptr[6] == colptr[5] and rowptr[6] == rowptr[5]
+
+
+@pytest.mark.parametrize(
+    "ref, graph", [("xla", "random"), ("pallas_interpret", "random"),
+                   ("xla", "hub"), ("pallas_interpret", "hub")],
+    ids=["xla", "pallas_interpret", "hub-xla", "hub-pallas_interpret"])
+def test_schur_matvec_plain_matches_jax(rng, ref, graph):
+    """On the graphs of _schur_graph, Eij rounded to bf16."""
+    hw, fb, max_deg = 96, 8, 4
+    ii, jj, valid, P = _schur_graph(rng, graph)
+    ii, jj = ii.astype(np.int32), jj.astype(np.int32)
     E = len(ii)
-    valid = rng.random(E) > 0.15
     Eij = rng.standard_normal((E, 6, hw)).astype(np.float32)
     Ei = rng.standard_normal((P, 6, hw)).astype(np.float32)
     Q = rng.random((P, hw)).astype(np.float32)
@@ -102,15 +156,20 @@ def test_schur_matvec_plain_matches_jax(rng, ref):
 
     # the port's plan is the same stable sort; its matvec masks the
     # invalid edges itself, so they keep their (non-zero) H and Eij here
-    plan = dba.schur_plan(_t(ii.astype(np.int64)), _t(valid), P)
+    plan = dba.schur_plan(_t(ii.astype(np.int64)), _t(jj.astype(np.int64)),
+                          _t(valid), P)
     np.testing.assert_array_equal(plan.order.numpy(), order)
     o = plan.order
     got = dba.schur_matvec(_t(x), _t(Ei), _t(Q), _t(H)[o],
                            _t(Eij)[o].to(torch.bfloat16),
-                           _t(jj)[o].contiguous(), plan.rowptr)
-    # fp32 sums over 96 pixels and up to 4 edges in another order, on
-    # entries of size ~30
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+                           _t(jj)[o].contiguous(), plan.rowptr, plan.colptr,
+                           plan.cidx, None)
+    # fp32 sums over 96 pixels and up to 4 edges out of a frame in another
+    # order, on entries of size ~30; the hub's row sums 35 edges' rows into
+    # entries of ~2000: there 1e-6 of the largest entry
+    want = np.asarray(want)
+    atol = 1e-4 if graph == "random" else 1e-6 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
 
 
 # ---------------------------------------------------------------------------

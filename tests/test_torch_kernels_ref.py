@@ -118,6 +118,66 @@ def test_alt_corr_plain_matches_jax_alt_corr(rng, levels):
                                atol=1e-5)
 
 
+def _adversarial_coords(rng, kind, coords, H=8, W=12):
+    """Coordinates that test the alt-corr kernel's reduction of a pixel
+    tile's windows to the box of target rows and columns they touch (its
+    tiles are 64 pixels: the first 64 of the 96 here):
+      nan       some x, some y, some both NaN: their outputs are NaN;
+      far       some coordinates at +-1e6: all their taps out of bounds;
+      tile_out  the first 64 pixels of every edge with windows that miss
+                the image at every level; the rest spans the frame;
+      border    coordinates at and around the last value whose window
+                still touches the image, on each side, at each level."""
+    c = coords.copy()
+    flat = c.reshape(-1, 2)
+    if kind == "nan":
+        pick = rng.random(flat.shape) < 0.08
+        flat[pick] = np.nan
+    elif kind == "far":
+        pick = rng.random(flat.shape) < 0.3
+        flat[pick] = rng.choice([-1e6, 1e6], size=int(pick.sum()))
+    elif kind == "tile_out":
+        E = c.shape[0]
+        tile = c.reshape(E, -1, 2)[:, :64]
+        tile[...] = rng.uniform(-200, -40, size=tile.shape)
+        right = tile[1::2, :, 0]
+        right[...] = rng.uniform(8 * (W + 4), 300, size=right.shape)
+    else:
+        vals = []
+        for size in (W, H):
+            vals.append([s * 2 ** l + d for l in range(4)
+                         for s in (-4, -3, size + 2, size + 3)
+                         for d in (-0.25, 0.0, 0.25)])
+        for a in range(2):
+            flat[:, a] = rng.choice(vals[a], size=flat.shape[0])
+        keep = rng.random(flat.shape[0]) < 0.3
+        flat[keep] = coords.reshape(-1, 2)[keep]
+    return c
+
+
+@pytest.mark.parametrize("kind", ["nan", "far", "tile_out", "border"])
+def test_alt_corr_plain_matches_jax_at_adversarial_coords(rng, kind):
+    jfp, fp, coords, ii, jj = _corr_problem(rng)
+    coords = _adversarial_coords(rng, kind, coords)
+    expect = np.asarray(jcorr.alt_corr(jfp, jnp.asarray(coords),
+                                       jnp.asarray(ii, jnp.int32),
+                                       jnp.asarray(jj, jnp.int32)))
+    got = corr.alt_corr(fp, _t(coords), _t(ii), _t(jj)).numpy()
+    # a NaN coordinate gives NaN outputs for its pixel in both, and only
+    # there; elsewhere the same exact bf16 x bf16 products summed in fp32
+    # in another order
+    bad = np.isnan(coords).any(-1)
+    assert np.isnan(got).any(-1).tolist() == bad.tolist()
+    assert np.isnan(got).all(-1).tolist() == bad.tolist()
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+    if kind in ("far", "tile_out"):
+        out = np.abs(coords).max(-1) >= 1e6 if kind == "far" else \
+            np.arange(96).reshape(8, 12)[None] < 64
+        assert np.all(got[np.broadcast_to(out, got.shape[:-1])] == 0)
+    if kind == "border":
+        assert np.count_nonzero(got) > 0
+
+
 def test_alt_corr_plain_matches_pallas_interpret(rng):
     jfp, fp, coords, ii, jj = _corr_problem(rng, levels=2)
     expect = alt_corr_fused(tuple(jfp.levels), jnp.asarray(coords),
@@ -173,8 +233,10 @@ def test_wrappers_never_fall_back_off_the_cpu(rng, which):
                                   ((E, 12, 12), torch.float32),
                                   ((E, 6, hw), torch.bfloat16),
                                   ((E,), torch.int32),
-                                  ((P + 1,), torch.int32))]
-        call = lambda: dba.schur_matvec(*args)
+                                  ((P + 1,), torch.int32),
+                                  ((P + 1,), torch.int32),
+                                  ((E,), torch.int32))]
+        call = lambda: dba.schur_matvec(*args, dba.schur_work(P, E, "meta"))
     else:
         _, fp, coords, ii, jj = _corr_problem(rng)
         args = ([lv.to("meta") for lv in fp], _t(coords).to("meta"),
