@@ -9,6 +9,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      goslam_tpu_torch/csrc with nvcc (one process per source, in parallel);
   2. check each kernel against its plain PyTorch version at small shapes:
+     edge_system at the main path's form and at adversarial inputs
+     (stereo edges, every edge invalid, E=1, pixels behind MIN_DEPTH, a
+     ragged 7x11 frame, E=1024 at 30x40), two launches bit for bit, and
+     the whole wrapper once under torch.cuda.set_sync_debug_mode("error");
+     both fp32 versions are also held against the plain version in fp64,
+     and phase 4 ends with each output's worst error (line "edge_system
+     accuracy");
      alt_corr at pixel counts that are no multiple of its 64-pixel tile
      and at adversarial coordinates (NaN, +-1e6, tiles whose windows all
      miss the image, windows at the image border, windows over the whole
@@ -31,11 +38,16 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                      candidate accepted, ATE < LOOP_ATE_GATE;
        loop-160-off  loop-160 without loop closing (reported beside it);
        loop-160-240  loop-160 at 240x320 (finite, all kernels launched);
+     After accuracy-128, the host synchronizations of one more frontend
+     step and of its dba.ba call are counted, with their sites
+     (torch.cuda.set_sync_debug_mode("warn")): a measurement, not a gate;
   4. each kernel against its plain version at every shape a path gave it,
      with the kernel's device time (CUDA graph replay; for schur_matvec the
-     whole matvec, scatter to jj included, one launch), the wrapper's and
-     the plain version's time, and the bound (the least time the card
-     could take for the same work) from this run's inputs.
+     whole matvec, scatter to jj included, one launch; for edge_system the
+     whole wrapper, captured in the graph, which fails if it
+     synchronizes), the uncaptured wrapper's and the plain version's time,
+     and the bound (the least time the card could take for the same work)
+     from this run's inputs.
 
 The second line from the end is a JSON object listing the kernels, the
 line before it the card's name and power limit; the last line is
@@ -45,12 +57,15 @@ without printing a result when there is none.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -79,10 +94,11 @@ CG_CHOL_DISP_TOL = 1e-2
 CG32_LAG = 1.5
 
 # fp32 operations per pixel of the edge-system kernel, counted from
-# csrc/edge_system.cu: the warp and projection (~40), the two 6-row
-# Jacobians and their adjoint transport (~110), the 78+12 Gram entries
-# for the u and v rows (4 each, 360), the couplings and depth terms (~50)
-K1_FLOP_PER_PX = 560
+# csrc/edge_system.cu (a multiply-add counts two): the projection (22),
+# the inverse depth, weights and residuals (14), the pose-j rows and the
+# disparity Jacobian (24), Cii and bz (12), Eij (16) and Eii = M Eij
+# (42), the 21 + 6 sums of the pose-j Gram over the u and v rows (92)
+K1_FLOP_PER_PX = 220
 # per output channel of alt-corr: the 4-tap bilinear combine (fp32)
 K2_FLOP_PER_CH = 11
 
@@ -152,55 +168,108 @@ def bound(nbytes: float, op_seconds: float):
 # kernel checks
 # ---------------------------------------------------------------------------
 
-def edge_problem(gen, E: int, ht8: int, wd8: int, P: int = 24):
-    """Inputs of the edge-system kernel in the main path's form: poses
-    near identity, disparities 0.3-0.8, targets near the reprojection,
-    one in eight edge slots invalid (padding)."""
+def edge_problem(gen, E: int, ht8: int, wd8: int, P: int = 24,
+                 kind: str = "path"):
+    """Inputs of the edge-system kernel.  path: the main path's form,
+    poses near identity, disparities 0.3-0.8, targets near the
+    reprojection, one in eight edge slots invalid (padding); stereo: a
+    quarter of the edges with ii == jj; invalid: every edge invalid;
+    behind: frame 0 moved 1.5 forward, and every other edge into it, so
+    that part of frame i lands at z < MIN_DEPTH."""
     from goslam_tpu_torch.ops import lie, projective
     dev = "cuda"
     xi = torch.randn((P, 6), generator=gen) * 0.05
-    poses = lie.exp(xi).to(dev)
+    poses = lie.exp(xi)
     disps = (0.3 + 0.5 * torch.rand((P, ht8, wd8), generator=gen)).to(dev)
     intr = torch.tensor([0.9 * wd8, 0.9 * wd8, wd8 / 2 - 0.5,
                          ht8 / 2 - 0.5]).to(dev)
     ii = torch.randint(0, P, (E,), generator=gen)
     jj = (ii + torch.randint(1, 4, (E,), generator=gen)) % P
-    ii, jj = ii.to(dev), jj.to(dev)
-    valid = (torch.rand(E, generator=gen) > 0.125).to(dev)
+    valid = torch.rand(E, generator=gen) > 0.125
+    if kind == "stereo":
+        jj[::4] = ii[::4]
+    elif kind == "invalid":
+        valid[:] = False
+    elif kind == "behind":
+        poses[0, 2] -= 1.5
+        jj[::2] = 0
+        ii[::2] = torch.where(ii[::2] == 0, 1, ii[::2])
+    elif kind != "path":
+        raise ValueError(kind)
+    poses, ii, jj, valid = poses.to(dev), ii.to(dev), jj.to(dev), \
+        valid.to(dev)
     coords, _ = projective.transform(poses, disps, intr, ii, jj)
     target = coords + torch.randn(coords.shape, generator=gen).to(dev)
     weight = torch.rand(coords.shape, generator=gen).to(dev)
     return poses, disps, intr, target, weight, ii, jj, valid
 
 
-def check_edge_system(gen, E, ht8, wd8, timing: bool):
-    from goslam_tpu_torch.ops import dba, kernels
-    args = edge_problem(gen, E, ht8, wd8)
+# the edge system's errors at every check: (case, output) -> errors
+K1_ERRS = {}
+
+
+def _scaled_err(a, b):
+    """max |a - b| over the largest |b|, and max |a - b|."""
+    d = float((a.double() - b.double()).abs().max())
+    return d / (float(b.abs().max()) + 1e-12), d
+
+
+def check_edge_system(gen, E, ht8, wd8, timing: bool, kind: str = "path"):
+    from goslam_tpu_torch.ops import dba
+    args = edge_problem(gen, E, ht8, wd8, kind=kind)
     out = dba.build_edge_system(*args)
     ref = dba.build_edge_system_plain(*args)
+    # an fp64 reference: the plain version on the same inputs in double
+    # (its pixel rays (u - cx) / fx are still rounded to fp32 there)
+    ref64 = dba.build_edge_system_plain(
+        *[a.double() if a.is_floating_point() else a for a in args])
     torch.cuda.synchronize()
-    err, rel = 0.0, 0.0
-    for name, a, b in zip(ref._fields, out, ref):
+    err, rel, worst = 0.0, 0.0, None
+    case = f"{kind} E={E} hw={ht8 * wd8}"
+    for name, a, b, c in zip(ref._fields, out, ref, ref64):
         if not torch.isfinite(a).all():
-            raise SystemExit(f"edge_system: non-finite {name}")
-        d = float((a - b).abs().max())
-        scale = float(b.abs().max()) + 1e-12
-        err, rel = max(err, d), max(rel, d / scale)
+            raise SystemExit(f"edge_system {kind}: non-finite {name}")
+        r, d = _scaled_err(a, b)
+        err = max(err, d)
+        if worst is None or r > rel:
+            rel, worst = r, name
+        # each fp32 version against fp64: how much of the kernel's
+        # difference from the plain version is either one's own rounding
+        K1_ERRS[case, name] = (r, _scaled_err(a, c)[0], _scaled_err(b, c)[0])
     # fp32 sums over <= 1200 pixels in another order (and with fused
     # multiply-adds): relative to each output's largest entry, 1e-4
     if rel > 1e-4:
-        raise SystemExit(f"edge_system E={E} hw={ht8 * wd8}: relative "
-                         f"error {rel:.3g} > 1e-4")
-    res = {"E": E, "hw": ht8 * wd8, "max_abs_err": err, "max_rel_err": rel}
+        raise SystemExit(f"edge_system {kind} E={E} hw={ht8 * wd8}: "
+                         f"relative error {rel:.3g} > 1e-4")
+    # no atomics: two launches give the same bits
+    again = dba.build_edge_system(*args)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise SystemExit(f"edge_system {kind}: two launches differ")
+    # the wrapper never synchronizes: torch raises if it does
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dba.build_edge_system(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res = {"E": E, "hw": ht8 * wd8, "kind": kind, "max_abs_err": err,
+           "max_rel_err": rel, "worst_output": worst}
     if timing:
         hw = ht8 * wd8
-        kin = dba.edge_kernel_inputs(*args)
-        res["ms"] = graph_ms(lambda: kernels.edge_system(*kin, *out))
+        # the whole wrapper, captured in a CUDA graph (capture fails if
+        # it synchronizes) and replayed; and uncaptured, between events
+        res["ms"] = graph_ms(lambda: dba.build_edge_system(*args))
         res["wrapper_ms"] = cuda_ms(lambda: dba.build_edge_system(*args))
         res["plain_ms"] = cuda_ms(lambda: dba.build_edge_system_plain(*args))
-        # read once: disparity, target, weight per pixel, Gij per edge;
-        # written once: H, v, Eii, Eij, Cii, bz
-        nbytes = E * hw * (4 + 8 + 8) + E * 8 * 4 + 16 \
+        # read once: the disparity rows of the source frames, target and
+        # weight per pixel, the poses of the frames the edges touch, ii,
+        # jj (int64), valid, intrinsics; written once: H, v, Eii, Eij,
+        # Cii, bz
+        ii, jj = args[5], args[6]
+        n_src = int(torch.unique(ii).numel())
+        n_pose = int(torch.unique(torch.cat([ii, jj])).numel())
+        nbytes = n_src * hw * 4 + E * hw * (8 + 8) + n_pose * 7 * 4 \
+            + E * (8 + 8 + 1) + 16 \
             + E * (144 + 12) * 4 + E * hw * (6 + 6 + 1 + 1) * 4
         res["bound_ms"], res["bound_by"] = bound(
             nbytes, E * hw * K1_FLOP_PER_PX / PEAK_FP32_S)
@@ -517,9 +586,10 @@ class ShapeRecorder:
         self._orig = (k.edge_system, k.alt_corr, k.schur_matvec)
         es, ac, sm = self._orig
 
-        def edge_system(d_i, *rest):
-            self._count("edge_system", tuple(d_i.shape))          # (E, hw)
-            return es(d_i, *rest)
+        def edge_system(poses, disps, intr, target, *rest):
+            self._count("edge_system", (target.shape[0],           # (E, hw)
+                                        disps.shape[1] * disps.shape[2]))
+            return es(poses, disps, intr, target, *rest)
 
         def alt_corr(levels, coords, *rest):
             E, h, w, _ = coords.shape
@@ -540,6 +610,71 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         k = self.kernels
         k.edge_system, k.alt_corr, k.schur_matvec = self._orig
+
+
+def sync_sites(fn):
+    """Run fn() once with torch's sync debug mode at "warn" and count the
+    host synchronizations it makes: (count, {"file:line": count}), each
+    site the innermost line of this repository on the warning's stack."""
+    sites = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost line of the port, else of this script
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if f.filename.startswith(ROOT + os.sep)]
+        here = [f for f in stack if not f.filename.endswith("chip_smoke.py")]
+        if filename.startswith(ROOT + os.sep):
+            site = f"{os.path.relpath(filename, ROOT)}:{lineno}"
+        elif here or stack:
+            f = (here or stack)[-1]
+            site = f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} " \
+                f"(in {os.path.basename(filename)}:{lineno})"
+        else:
+            site = f"{filename}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum(sites.values()), dict(sorted(sites.items(),
+                                            key=lambda kv: -kv[1]))
+
+
+def count_syncs(slam):
+    """The host synchronizations left in one frontend step
+    (FactorGraph.update, as the frontend calls it) and in the one dba.ba
+    call inside it, replayed on copies of its arguments."""
+    from goslam_tpu_torch.ops import dba
+    graph = slam.frontend.graph
+    captured = []
+    ba = dba.ba
+
+    def recording_ba(*a, **k):
+        captured.append(([x.clone() if torch.is_tensor(x) else x
+                          for x in a], dict(k)))
+        return ba(*a, **k)
+
+    dba.ba = recording_ba
+    try:
+        n_step, step_sites = sync_sites(
+            lambda: graph.update(use_inactive=True))
+    finally:
+        dba.ba = ba
+    a, k = captured[-1]
+    n_ba, ba_sites = sync_sites(lambda: dba.ba(*a, **k))
+    return {"frontend_update": {"count": n_step, "sites": step_sites},
+            "ba": {"count": n_ba, "sites": ba_sites,
+                   "E": int(a[7].shape[0]), "P": int(a[0].shape[0]),
+                   "iters": k.get("iters")}}
 
 
 class PhaseTimer:
@@ -590,12 +725,14 @@ class PhaseTimer:
 
 
 def run_path(name: str, out_dir: str, phases: bool = False,
-             trace: bool = False):
+             trace: bool = False, syncs: bool = False):
     """Drive one path through SLAMSystem.track / terminate and check what
     comes out: finite poses of the expected shape, the path's ATE gate,
     its fewest keyframes, its kernels launched.  `phases` times the
     system's phases (a device synchronize around each), `trace` runs
-    under torch.profiler; both slow the run, so they are separate."""
+    under torch.profiler; both slow the run, so they are separate.
+    `syncs` counts, after the run, the host synchronizations of one more
+    frontend step and of its dba.ba call (count_syncs)."""
     from goslam_tpu_torch.data.synthetic import Synthetic
     from goslam_tpu_torch.models.convert import load_checkpoint
     from goslam_tpu_torch.ops import kernels
@@ -621,6 +758,10 @@ def run_path(name: str, out_dir: str, phases: bool = False,
         # path of 160 frames takes many minutes to summarize
         prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
         prof.__enter__()
+    # what earlier runs left behind is freed first; what stays allocated
+    # (the model's weights, the frames) is reported beside the peak
+    gc.collect()
+    mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with ShapeRecorder() as rec:
         kernels.reset_launches()
@@ -654,6 +795,7 @@ def run_path(name: str, out_dir: str, phases: bool = False,
         "tracked_fps": len(frames) / t_track, "launches": launches,
         "loop_accepts": slam.backend.total_loop_accepts,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "mem_at_start_gb": mem_at_start / 1e9,
         "shapes": {k: sorted(v.items(), key=lambda kv: -kv[1])
                    for k, v in rec.shapes.items()},
         "schur_valid": sorted(rec.schur_valid.items()),
@@ -664,6 +806,9 @@ def run_path(name: str, out_dir: str, phases: bool = False,
                       "iterations": timer.pcg_iterations}
     if trace:
         res["profile"] = summarize_profile(prof, t_total, out_dir)
+    if syncs:
+        res["syncs"] = count_syncs(slam)
+        print(f"host syncs {name}: {json.dumps(res['syncs'])}", flush=True)
 
     kind = "timed " if phases else "traced " if trace else ""
     say(f"{kind}path {name}: {json.dumps(res)}")
@@ -766,8 +911,17 @@ def main(argv=None) -> int:
                     raise SystemExit(f"register spills in {p}: {line}")
 
     gen = torch.Generator().manual_seed(0)
-    print("small check edge_system:",
-          check_edge_system(gen, 16, 8, 12, False), flush=True)
+    # edge_system at the main path's form and at adversarial inputs:
+    # stereo edges, every edge invalid, E=1, pixels behind MIN_DEPTH, a
+    # ragged 7x11 frame, E=1024 at 30x40
+    for kind, E, h8, w8 in (("path", 16, 8, 12), ("stereo", 64, 16, 24),
+                            ("invalid", 64, 16, 24), ("path", 1, 16, 24),
+                            ("behind", 64, 16, 24), ("path", 40, 7, 11),
+                            ("stereo", 40, 7, 11), ("behind", 40, 7, 11),
+                            ("behind", 160, 30, 40),
+                            ("path", 1024, 30, 40)):
+        print("small check edge_system:",
+              check_edge_system(gen, E, h8, w8, False, kind), flush=True)
     # alt_corr at every kind of coordinates, at pixel counts that are no
     # multiple of its 64-pixel tile (96 and 300, four levels)
     for kind in CORR_KINDS:
@@ -793,7 +947,8 @@ def main(argv=None) -> int:
 
     runs = {}
     for name in names:
-        runs[name] = run_path(name, os.path.join(args.out, name))
+        runs[name] = run_path(name, os.path.join(args.out, name),
+                              syncs=name == "accuracy-128")
     if "loop-160" in runs and "loop-160-off" in runs:
         print(f"loop-160 ATE with loop closing "
               f"{runs['loop-160']['ate_rmse']:.4f} m, without "
@@ -826,6 +981,29 @@ def main(argv=None) -> int:
                 checked["schur_matvec"][(hw, P, E)] = res
                 say(f"schur_matvec {json.dumps(res)}")
     say("all kernels checked at every shape")
+    # the edge system's accuracy per output: its worst relative error
+    # against the plain version over every case above, and the kernel's
+    # and the plain version's against fp64 at that case
+    acc = {}
+    for (case, name), errs in K1_ERRS.items():
+        if name not in acc or errs[0] > acc[name]["vs_plain"]:
+            acc[name] = {"case": case, "vs_plain": errs[0],
+                         "kernel_vs_fp64": errs[1], "plain_vs_fp64": errs[2]}
+    for name in acc:
+        cases = [e for (c, n), e in K1_ERRS.items() if n == name]
+        acc[name]["worst_kernel_vs_fp64"] = max(e[1] for e in cases)
+        acc[name]["worst_plain_vs_fp64"] = max(e[2] for e in cases)
+    print(f"edge_system accuracy: {json.dumps(acc)}", flush=True)
+    # device time each kernel loses per run of the driven paths: at every
+    # shape a path gave it, launches x (time - bound)
+    lost = {name: 0.0 for name in checked}
+    for r in runs.values():
+        for name in checked:
+            for shape, count in r["shapes"][name]:
+                res = checked[name][(shape[-1],) + tuple(shape[:-1])]
+                lost[name] += count * (res["ms"] - res["bound_ms"])
+    print(f"lost per run, ms (launches x (ms - bound_ms) over "
+          f"{', '.join(runs)}): {json.dumps(lost)}", flush=True)
 
     if set(names) != set(PATHS):
         print("not all paths were driven: no result line", file=sys.stderr)
@@ -846,7 +1024,8 @@ def main(argv=None) -> int:
             "launches": run["launches"][name],
             "max_abs_err": max(c["max_abs_err"]
                                for c in checked[name].values()),
-            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "ms": res["ms"], "wrapper_ms": res["wrapper_ms"],
+            "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             # no single PyTorch call computes any of the three functions
             "library_ms": None,

@@ -162,49 +162,62 @@ def build_edge_system_plain(poses, disps, intrinsics, target, weight, ii, jj,
 def build_edge_system(poses, disps, intrinsics, target, weight, ii, jj,
                       valid) -> EdgeSystem:
     """Edge system (see build_edge_system_plain): CUDA tensors launch the
-    kernel csrc/edge_system.cu, CPU tensors take the plain version."""
+    kernel csrc/edge_system.cu once on the raw arguments (Gij, the stereo
+    baseline, the disparity gather and the valid mask are the kernel's own
+    work), CPU tensors take the plain version.  On CUDA the call only
+    checks, allocates and launches: it copies nothing from the host and
+    reads nothing from the device, so it never synchronizes and can be
+    captured in a CUDA graph."""
     if disps.device.type == "cpu":
         return build_edge_system_plain(poses, disps, intrinsics, target,
                                        weight, ii, jj, valid)
-    args = edge_kernel_inputs(poses, disps, intrinsics, target, weight, ii,
-                              jj, valid)
-    E, hw = args[0].shape
-    out = EdgeSystem(*[torch.empty(shape, dtype=torch.float32,
-                                   device=disps.device)
-                       for shape in ((E, 12, 12), (E, 12), (E, 6, hw),
-                                     (E, 6, hw), (E, hw), (E, hw))])
-    kernels.edge_system(*args, *out)
+    E, hw = check_edge_args(poses, disps, intrinsics, target, weight, ii,
+                            jj, valid)
+    sizes = (E * 144, E * 12, E * 6 * hw, E * 6 * hw, E * hw, E * hw)
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=disps.device)
+    out = EdgeSystem(*[part.view(shape) for part, shape in zip(
+        buf.split(sizes), ((E, 12, 12), (E, 12), (E, 6, hw), (E, 6, hw),
+                           (E, hw), (E, hw)))])
+    kernels.edge_system(poses, disps, intrinsics, target, weight, ii, jj,
+                        valid, *out)
     return out
 
 
-def edge_kernel_inputs(poses, disps, intrinsics, target, weight, ii, jj,
-                       valid):
-    """Check the arguments of build_edge_system and lay them out as the
-    kernel reads them: (d_i [E,hw], target [E,hw,2], weight [E,hw,2] with
-    invalid edges zeroed, g [E,8] = Gij and the stereo flag,
-    intrinsics [4], wd)."""
+def check_edge_args(poses, disps, intrinsics, target, weight, ii, jj,
+                    valid):
+    """Check the arguments of build_edge_system as the kernel reads them
+    (from their metadata alone: nothing is read from the device): poses
+    [P,7], disps [P,ht,wd], intrinsics [4], target/weight [E,ht,wd,2],
+    all fp32; ii/jj [E] int64; valid [E] bool; all contiguous on one
+    device.  Returns (E, hw)."""
     E = ii.shape[0]
-    ht, wd = disps.shape[-2:]
-    hw = ht * wd
+    P, ht, wd = disps.shape if disps.dim() == 3 else (-1, -1, -1)
     dev = disps.device
     for name, t in (("poses", poses), ("disps", disps),
                     ("intrinsics", intrinsics), ("target", target),
+                    ("weight", weight), ("ii", ii), ("jj", jj),
+                    ("valid", valid)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"edge system: {name} must be contiguous on "
+                             f"{dev}, got {t.device}")
+    for name, t in (("poses", poses), ("disps", disps),
+                    ("intrinsics", intrinsics), ("target", target),
                     ("weight", weight)):
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"edge system: {name} must be fp32 on {dev}, "
-                             f"got {t.dtype} on {t.device}")
-    if (target.shape != (E, ht, wd, 2) or weight.shape != (E, ht, wd, 2)
+        if t.dtype != torch.float32:
+            raise ValueError(f"edge system: {name} must be fp32, got "
+                             f"{t.dtype}")
+    if (ii.dtype != torch.int64 or jj.dtype != torch.int64
+            or valid.dtype != torch.bool):
+        raise ValueError("edge system: ii/jj must be int64 and valid bool")
+    if (P <= 0 or poses.shape != (P, 7) or ht * wd <= 0
+            or target.shape != (E, ht, wd, 2)
+            or weight.shape != (E, ht, wd, 2) or ii.shape != (E,)
             or jj.shape != (E,) or valid.shape != (E,)
             or intrinsics.shape != (4,)):
-        raise ValueError("edge system: expected target/weight [E, ht, wd, 2],"
-                         " ii/jj/valid [E] and intrinsics [4]")
-    Gij, stereo = _edge_transforms(poses, ii, jj)
-    g = torch.cat([Gij, stereo[:, None].float()], dim=-1).contiguous()
-    d_i = disps[ii].reshape(E, hw).contiguous()
-    wgt = (weight.reshape(E, hw, 2)
-           * valid.to(torch.float32)[:, None, None]).contiguous()
-    tgt = target.reshape(E, hw, 2).contiguous()
-    return d_i, tgt, wgt, g, intrinsics.contiguous(), wd
+        raise ValueError("edge system: expected poses [P, 7], disps "
+                         "[P, ht, wd], target/weight [E, ht, wd, 2], "
+                         "ii/jj/valid [E] and intrinsics [4]")
+    return E, ht * wd
 
 
 def _source_table(ii, valid, P: int, D: int):

@@ -37,7 +37,7 @@ ALT_CORR_CHANNELS = 128
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # the C entry <name>_launch of each source; the last pointer is the stream
 _ARGTYPES = {
-    "edge_system": [_PTR] * 5 + [_INT] * 3 + [_PTR] * 7,
+    "edge_system": [_PTR] * 8 + [_INT] * 4 + [_PTR] * 7,
     "alt_corr": [_PTR] * 3 + [_INT] * 2 + [_PTR] * 3 + [_INT] * 2
     + [_PTR] * 2,
     "schur_matvec": [_PTR] * 9 + [_INT] * 4 + [_PTR] * 4,
@@ -119,16 +119,23 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def edge_system(d_i, tgt, wgt, g, intr, wd, H, v, Eii, Eij, Cii, bz):
-    """Launch csrc/edge_system.cu on tensors the caller has checked:
-    d_i [E,hw], tgt/wgt [E,hw,2], g [E,8], intr [4] (all fp32, contiguous,
-    on one CUDA device) into preallocated H [E,12,12], v [E,12],
-    Eii/Eij [E,6,hw], Cii/bz [E,hw]."""
-    E, hw = d_i.shape
+def edge_system(poses, disps, intrinsics, target, weight, ii, jj, valid,
+                H, v, Eii, Eij, Cii, bz):
+    """Launch csrc/edge_system.cu once on tensors the caller has checked
+    (dba.check_edge_args): poses [P,7], disps [P,ht,wd], intrinsics [4],
+    target/weight [E,ht,wd,2] fp32, ii/jj [E] int64, valid [E] bool,
+    all contiguous on one CUDA device, into preallocated H [E,12,12],
+    v [E,12], Eii/Eij [E,6,hw], Cii/bz [E,hw].  Reads only metadata on the
+    host."""
+    P, ht, wd = disps.shape
+    E, hw = ii.shape[0], ht * wd
+    if E == 0:
+        return
     err = _lib("edge_system").edge_system_launch(
-        _ptr(d_i), _ptr(tgt), _ptr(wgt), _ptr(g), _ptr(intr), E, hw, wd,
+        _ptr(poses), _ptr(disps), _ptr(intrinsics), _ptr(target),
+        _ptr(weight), _ptr(ii), _ptr(jj), _ptr(valid), P, E, hw, wd,
         _ptr(H), _ptr(v), _ptr(Eii), _ptr(Eij), _ptr(Cii), _ptr(bz),
-        _stream(d_i))
+        _stream(disps))
     _check("edge_system", err)
 
 

@@ -24,7 +24,7 @@ from goslam_tpu.ops import dba as jdba
 from goslam_tpu.ops import lie as jlie
 from goslam_tpu.ops.pallas_corr import alt_corr_fused
 from goslam_tpu.ops.pallas_kernels import build_edge_system_fused
-from goslam_tpu_torch.ops import corr, dba
+from goslam_tpu_torch.ops import corr, dba, kernels
 
 
 def _t(a):
@@ -59,10 +59,34 @@ def _assert_close_scaled(port, ref, names, atol):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("ref", ["xla", "pallas_interpret"])
-def test_edge_system_plain_matches_jax(rng, ref):
-    prob = _edge_problem(rng)
-    poses, disps, intr, tgt, wgt, ii, jj, valid = prob
+def _edge_case(rng, case):
+    """The edge-system inputs of one case: mixed (regular, stereo and
+    invalid edges), behind (frame 0 moved 1.5 forward: part of frame 5
+    lands at z < MIN_DEPTH on edge 5 -> 0), ragged (a 7x11 frame),
+    invalid (every edge invalid), single (E=1).  The same kinds of input
+    chip_smoke.py gives the CUDA kernel on the card."""
+    if case == "ragged":
+        return _edge_problem(rng, ht=7, wd=11)
+    prob = list(_edge_problem(rng))
+    if case == "behind":
+        prob[0] = prob[0].copy()
+        prob[0][0, 2] -= 1.5
+    elif case == "invalid":
+        prob[7] = np.zeros_like(prob[7])
+    elif case == "single":
+        prob[3:] = [a[:1] for a in prob[3:]]
+    return tuple(prob)
+
+
+EDGE_CASES = ["mixed", "behind", "ragged", "invalid", "single"]
+
+
+# the mixed case keeps the ids "xla" and "pallas_interpret"
+@pytest.mark.parametrize("ref,case", [
+    pytest.param(ref, case, id=ref if case == "mixed" else f"{ref}-{case}")
+    for case in EDGE_CASES for ref in ("xla", "pallas_interpret")])
+def test_edge_system_plain_matches_jax(rng, ref, case):
+    prob = _edge_case(rng, case)
     jargs = [jnp.asarray(a) for a in prob]
     jargs[5], jargs[6] = jargs[5].astype(jnp.int32), jargs[6].astype(
         jnp.int32)
@@ -75,12 +99,78 @@ def test_edge_system_plain_matches_jax(rng, ref):
     # fp32 everywhere; 1e-5 of each output's range covers the reordered
     # sums over 128 pixels
     _assert_close_scaled(got, expect, dba.EdgeSystem._fields, 1e-5)
-    # stereo edge (index 8) constrains depth only; invalid edge (index 3)
-    # contributes nothing
-    assert float(got.H[8].abs().max()) == 0.0
-    assert float(got.Cii[8].abs().max()) > 0.0
-    assert float(got.H[3].abs().max()) == 0.0
-    assert float(got.Cii[3].abs().max()) == 0.0
+    if case == "mixed":
+        # stereo edge (index 8) constrains depth only; invalid edge
+        # (index 3) contributes nothing
+        assert float(got.H[8].abs().max()) == 0.0
+        assert float(got.Cii[8].abs().max()) > 0.0
+        assert float(got.H[3].abs().max()) == 0.0
+        assert float(got.Cii[3].abs().max()) == 0.0
+    elif case == "behind":
+        # edge 5 -> 0 sees some pixels behind MIN_DEPTH, not all
+        assert bool((got.Cii[5] == 0).any()) and bool((got.Cii[5] > 0).any())
+    elif case == "invalid":
+        assert all(float(t.abs().max()) == 0.0 for t in got)
+
+
+def test_edge_system_cuda_wrapper_is_one_launch_without_host_data(
+        rng, monkeypatch):
+    """On a tensor off the CPU, dba.build_edge_system checks, allocates
+    and launches the kernel once on the raw arguments: no host data turned
+    into a tensor, no device value read (meta tensors have none), so it
+    never synchronizes."""
+    prob = [_t(a).to("meta") for a in _edge_problem(rng)]
+    E, (ht, wd) = prob[5].shape[0], prob[1].shape[1:]
+    hw = ht * wd
+    calls = []
+    monkeypatch.setattr(kernels, "edge_system",
+                        lambda *a: calls.append(a))
+
+    def refuse(*a, **k):
+        raise AssertionError("the wrapper touched host data or a device "
+                             "value")
+
+    monkeypatch.setattr(torch.Tensor, "new_tensor", refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    out = dba.build_edge_system(*prob)
+    monkeypatch.undo()
+    assert len(calls) == 1
+    args = calls[0]
+    assert len(args) == 14
+    assert all(got is want for got, want in zip(args[:8], prob))
+    assert [tuple(t.shape) for t in args[8:]] == [
+        (E, 12, 12), (E, 12), (E, 6, hw), (E, 6, hw), (E, hw), (E, hw)]
+    assert all(t.dtype == torch.float32 and t.device.type == "meta"
+               and t.is_contiguous() for t in args[8:])
+    assert all(o is a for o, a in zip(out, args[8:]))
+
+
+def test_edge_system_cuda_wrapper_checks_its_arguments(rng):
+    """The checks run on metadata alone: a wrong type, shape or layout
+    raises before anything is allocated or launched."""
+    prob = [_t(a).to("meta") for a in _edge_problem(rng)]
+    bad = [
+        ("poses", prob[0][:, :6]),
+        ("target", prob[3].transpose(1, 2)),
+        ("weight", prob[4].double()),
+        ("ii", prob[5].int()),
+        ("jj", prob[6].int()),
+        ("valid", prob[7].float()),
+        ("valid", prob[7].to(torch.uint8)),
+        ("intrinsics", prob[2][:3]),
+    ]
+    names = ["poses", "disps", "intrinsics", "target", "weight", "ii",
+             "jj", "valid"]
+    for name, t in bad:
+        args = list(prob)
+        args[names.index(name)] = t
+        with pytest.raises(ValueError):
+            dba.check_edge_args(*args)
+    assert dba.check_edge_args(*prob) == (prob[5].shape[0], 8 * 16)
 
 
 def _corr_problem(rng, T=3, H=8, W=12, C=128, E=4, levels=4):
