@@ -18,7 +18,8 @@ def default_config() -> dict:
         "mode": "mono",
         "stride": 1,
         # multi-device scale-out of global BA and mapping (not ported
-        # yet: the port runs on one device whatever this says)
+        # yet: tracking runs on one device whatever this says, and
+        # mapping raises when it would shard over several GPUs)
         "multichip": True,
         "only_tracking": False,
         "mapping": {

@@ -62,6 +62,49 @@ class Synthetic:
     def __len__(self):
         return self.n_frames
 
+    def gt_mesh(self, subdiv: int = 8):
+        """Exact ground-truth room mesh: the interior surface of the
+        [-half, half]^3 box, each face subdivided subdiv x subdiv for
+        uniform surface sampling / stable ICP (mesh-eval protocol,
+        reference mesher.py:390-421 — GO-SLAM evaluates against the
+        dataset's GT mesh; here the scene geometry is analytic, so the
+        GT mesh is too).  Returns (verts [V,3] float32, tris [T,3] int32)
+        with triangles wound to face the room interior."""
+        h = float(self.half)
+        lin = np.linspace(-h, h, subdiv + 1, dtype=np.float32)
+        verts, tris = [], []
+        base = 0
+        # each face: fixed axis + sign; (u, v) span the other two axes
+        for axis in range(3):
+            for sign in (-1.0, 1.0):
+                u_ax, v_ax = [a for a in range(3) if a != axis]
+                uu, vv = np.meshgrid(lin, lin, indexing="ij")
+                pts = np.empty(uu.shape + (3,), np.float32)
+                pts[..., axis] = sign * h
+                pts[..., u_ax] = uu
+                pts[..., v_ax] = vv
+                verts.append(pts.reshape(-1, 3))
+                n = subdiv + 1
+                i0, j0 = np.meshgrid(np.arange(subdiv), np.arange(subdiv),
+                                     indexing="ij")
+                a = base + i0 * n + j0
+                b, c, d = a + n, a + n + 1, a + 1
+                tris.append(np.stack([a, b, c], -1).reshape(-1, 3))
+                tris.append(np.stack([a, c, d], -1).reshape(-1, 3))
+                base += pts.reshape(-1, 3).shape[0]
+        verts = np.concatenate(verts).astype(np.float32)
+        tris = np.concatenate(tris).astype(np.int32)
+        # interior-facing winding (the grid orientation's handedness
+        # flips with the axis permutation — fix per-face by checking the
+        # normal against the room interior, i.e. the origin side)
+        e1 = verts[tris[:, 1]] - verts[tris[:, 0]]
+        e2 = verts[tris[:, 2]] - verts[tris[:, 0]]
+        normal = np.cross(e1, e2)
+        centroid = verts[tris].mean(axis=1)
+        outward = (normal * centroid).sum(-1) > 0
+        tris[outward] = tris[outward][:, [0, 2, 1]]
+        return verts, tris
+
     def __getitem__(self, index):
         H, W = self.H_out, self.W_out
         # intrinsics chosen directly at output size

@@ -1,4 +1,4 @@
-"""Carry DroidNet weights from the flax parameter tree to the port.
+"""Carry DroidNet and InstantNeuS weights from flax parameter trees to the port.
 
 The JAX package keeps DroidNet's parameters as a nested dict of numpy
 arrays (flax names, HWIO conv kernels); its trainer pickles that tree
@@ -65,6 +65,38 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["weight_calib"] = torch.tensor(
         float(np.asarray(params.get("weight_calib", 1.0))))
     return sd
+
+
+def convert_mapping_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX mapper's InstantNeuS parameter tree (numpy leaves) -> the
+    port's ``InstantNeuS`` state dict: dense kernels [in, out] become
+    ``Linear.weight`` [out, in]; the hash table, ``B`` and the variance
+    are copied as they are."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+    def dense(prefix, leaf):
+        sd[prefix + ".weight"] = t(np.asarray(leaf["kernel"]).T)
+        sd[prefix + ".bias"] = t(leaf["bias"])
+
+    sd: Dict[str, torch.Tensor] = {}
+    sdf, col = params["sdf_network"], params["color_network"]
+    sd["sdf_network.encoding.table"] = t(sdf["encoding"]["table"])
+    dense("sdf_network.sdf_layer", sdf["sdf_layer"])
+    sd["color_network.B"] = t(col["B"])
+    i = 0
+    while f"hidden{i}" in col:
+        dense(f"color_network.hidden.{i}", col[f"hidden{i}"])
+        i += 1
+    dense("color_network.out", col["out"])
+    sd["variance"] = t(params["variance"])
+    return sd
+
+
+def is_flax_tree(params: Mapping) -> bool:
+    """A nested flax tree (the JAX package's) rather than a flat state
+    dict of dotted names (the port's)."""
+    return any(isinstance(v, Mapping) for v in params.values())
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -64,6 +64,40 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix -> unit quaternion [qx, qy, qz, qw]: the four
+    Shepperd candidates, the numerically best picked per matrix."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    qw0 = torch.sqrt(torch.clamp(1.0 + tr, min=1e-12)) / 2
+    q0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0), qw0], dim=-1)
+    qx1 = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=1e-12)) / 2
+    q1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], dim=-1)
+    qy2 = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=1e-12)) / 2
+    q2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], dim=-1)
+    qz3 = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=1e-12)) / 2
+    q3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], dim=-1)
+
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1,
+                                           torch.where(cond2, q2, q3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def act3(pose: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Apply pose to regular 3D point(s): R x + t."""
+    return quat_rotate(pose[..., 3:7], x) + pose[..., 0:3]
+
+
 def act(pose: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Apply pose to homogeneous point(s) [x,y,z,h]: [R x + h t, h]."""
     xyz = quat_rotate(pose[..., 3:7], X[..., :3]) + X[..., 3:4] * pose[..., 0:3]
@@ -177,6 +211,11 @@ def matrix(pose: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """4x4 homogeneous matrix -> pose 7-vector."""
+    return torch.cat([m[..., :3, 3], matrix_to_quat(m[..., :3, :3])], dim=-1)
 
 
 def normalize(pose: torch.Tensor) -> torch.Tensor:

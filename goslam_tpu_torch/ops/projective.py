@@ -109,3 +109,66 @@ def frame_distance(poses: torch.Tensor, disps: torch.Tensor,
     mean_d = (d * vf).sum(dim=(-2, -1)) / num_valid.clamp(min=1.0)
     enough = num_valid / float(ht * wd) > 0.75
     return torch.where(enough, mean_d, torch.full_like(mean_d, 1000.0))
+
+
+# ---------------------------------------------------------------------------
+# world points and multiview depth consistency (for the multiview filter)
+# ---------------------------------------------------------------------------
+
+# neighbour offsets of the depth-consistency check (droid_kernels.cu:695)
+_NEIGHBOURS = (-1, -2, -3, 3, 4, 5)
+
+
+def iproj_world(poses: torch.Tensor, disps: torch.Tensor,
+                intrinsics: torch.Tensor) -> torch.Tensor:
+    """Unproject each frame's disparity map into world coordinates.
+
+    poses [T, 7] w2c, disps [T, ht, wd]; returns [T, ht, wd, 3]."""
+    fx, fy, cx, cy = intrinsics.unbind(-1)
+    ht, wd = disps.shape[-2:]
+    grid = coords_grid(ht, wd, disps.device)
+    z = 1.0 / torch.clamp(disps, min=1e-8)
+    X = z * (grid[..., 0] - cx) / fx
+    Y = z * (grid[..., 1] - cy) / fy
+    pts_cam = torch.stack([X, Y, z], dim=-1)
+    c2w = lie.inv(poses)
+    return lie.act3(c2w[:, None, None, :], pts_cam)
+
+
+def depth_consistency_count(poses: torch.Tensor, disps: torch.Tensor,
+                            intrinsics: torch.Tensor, thresh) -> torch.Tensor:
+    """For every frame, how many of its 6 neighbours (offsets -1, -2, -3,
+    +3, +4, +5) agree on each pixel's depth: neighbour j agrees at pixel p
+    of frame i when p's warp into j has floor coordinates strictly inside
+    the image and |1/d_warped - 1/d_j| < thresh at one of the 4 integer
+    taps.  thresh: scalar or [T] (metres).  Returns [T, ht, wd] float."""
+    T, ht, wd = disps.shape
+    dev = disps.device
+    offsets = torch.tensor(_NEIGHBOURS, device=dev)
+    K = len(_NEIGHBOURS)
+    ii = torch.arange(T, device=dev).repeat_interleave(K)
+    jj = (ii.view(T, K) + offsets[None, :]).reshape(-1)
+    in_range = (jj >= 0) & (jj < T)
+    jj_c = jj.clamp(0, T - 1)
+
+    coords = transform(poses, disps, intrinsics, ii, jj_c,
+                       return_depth=True)[0]
+    x, y, dz = coords.unbind(-1)                 # dz: inverse depth in j
+    z = 1.0 / torch.clamp(dz, min=1e-8)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+
+    t = torch.as_tensor(thresh, dtype=torch.float32, device=dev)
+    t = t.expand(T)[ii][:, None, None]
+    flat_dj = disps[jj_c].reshape(-1, ht * wd)
+    agree = torch.zeros(x.shape, dtype=torch.bool, device=dev)
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi = (x0 + dx).clamp(0, wd - 1)
+        yi = (y0 + dy).clamp(0, ht - 1)
+        dj = torch.gather(flat_dj, 1, (yi * wd + xi).reshape(-1, ht * wd))
+        zj = 1.0 / torch.clamp(dj.view(x.shape), min=1e-8)
+        agree |= (z - zj).abs() < t
+
+    inb = (x0 >= 0) & (x0 < wd - 1) & (y0 >= 0) & (y0 < ht - 1)
+    ok = agree & inb & in_range[:, None, None]
+    return ok.float().view(T, K, ht, wd).sum(dim=1)

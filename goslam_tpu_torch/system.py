@@ -1,15 +1,20 @@
-"""SLAMSystem: the tracking-only RGB-D pipeline on one device.
+"""SLAMSystem: the RGB-D pipeline on one device, tracking and mapping.
 
   per frame:     motion filter -> frontend (windowed BA; with
                  ``tracking.frontend.enable_loop`` every frontend update
                  ends in the backend's loop closing)
   per K kfs:     global dense BA (``tracking.global_ba_every``)
-  terminate:     final dense BA x2, trajectory fill, ATE (Umeyama)
+  per M kfs:     multiview filter -> one mapper round
+                 (``mapping.mapping_every``; not with ``only_tracking``)
+  terminate:     final dense BA x2, checkpoint (go.ckpt), trajectory
+                 fill, ATE (Umeyama); with mapping, the final filter
+                 pass, ``post_processing_iters`` final mapping rounds,
+                 and the mesh: extracted, culled, exported and evaluated
 
 Frames are ingested synchronously.  They are quantized the way the JAX
 package ships them to its device -- images to uint8, depth to fp16 -- so
-both packages track the same inputs.  A failure inside global BA
-propagates: it is never swallowed.
+both packages track the same inputs.  A failure inside global BA or a
+mapping round propagates: it is never swallowed.
 
 The system runs on the GPU unless the caller passes ``device="cpu"``; it
 raises when no GPU is visible and none was asked for.
@@ -19,21 +24,27 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from .config import default_config
-from .models.convert import load_checkpoint
+from .mapping import mesher as M
+from .mapping.mapper import Mapper
+from .models.convert import (convert_mapping_params, is_flax_tree,
+                             load_checkpoint)
 from .models.droidnet import DroidNet, init_droidnet
-from .ops import lie
+from .ops import lie, projective
 from .tracking.backend import Backend
 from .tracking.frontend import Frontend
 from .tracking.motion_filter import MotionFilter
+from .tracking.multiview_filter import MultiviewFilter
 from .tracking.trajectory_filler import TrajectoryFiller
 from .tracking.video import VideoBuffer
 from .utils import evaluate
+from .utils.obb import OrientedBoundingBox
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,14 +82,26 @@ class SLAMSystem:
         self.mode = self.cfg.get("mode", "mono")
         self.only_tracking = only_tracking or self.cfg.get(
             "only_tracking", False)
-        if not self.only_tracking:
-            raise NotImplementedError(
-                "mapping and meshing are not ported yet (ROADMAP.md, queue "
-                "A item 1); run with only_tracking")
         if self.mode != "rgbd":
             raise NotImplementedError(
                 f"mode {self.mode!r} is not ported yet (ROADMAP.md, queue "
                 f"A item 5); the port tracks RGB-D")
+        if self.cfg.get("make_video", False):
+            raise NotImplementedError(
+                "make_video (meshes after every mapping round, "
+                "tools/meshvideo.py) is not ported yet (ROADMAP.md, queue A "
+                "item 6)")
+        if self.cfg.get("viz", False):
+            raise NotImplementedError(
+                "the live viewer is not ported yet (ROADMAP.md, queue A "
+                "item 6)")
+        if (not self.only_tracking and self.cfg.get("multichip", True)
+                and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            raise NotImplementedError(
+                "ray-sharded mapping over several GPUs is not ported yet "
+                "(ROADMAP.md, queue A item 3); set multichip: False to map "
+                "on one GPU")
         self.output = output or self.cfg["data"].get("output", "") or "output"
         os.makedirs(self.output, exist_ok=True)
 
@@ -103,8 +126,17 @@ class SLAMSystem:
         self.traj_filler = TrajectoryFiller(self.net, self.video,
                                             self.motion_filter)
 
+        if self.only_tracking:
+            self.multiview_filter = self.mapper = None
+        else:
+            self.multiview_filter = MultiviewFilter(self.video, self.cfg,
+                                                    warmup=tr["warmup"])
+            self.mapper = Mapper(self.video, self.cfg)
+
         self.global_ba_every = tr.get("global_ba_every", 10)
+        self.mapping_every = self.cfg["mapping"].get("mapping_every", 5)
         self._kf_since_ba = 0
+        self._kf_since_map = 0
         self.frame_count = 0
 
     # ------------------------------------------------------------------
@@ -128,17 +160,25 @@ class SLAMSystem:
 
     def _drain_one(self, timestamp, img, dep, intrinsics, gt_pose) -> bool:
         """Motion filter, frontend and, every `global_ba_every` keyframes,
-        global BA for one quantized frame.  Returns the admit decision."""
+        global BA, every `mapping_every` keyframes the multiview filter
+        and, when it published, a mapper round, for one quantized frame.
+        Returns the admit decision."""
         is_kf = self.motion_filter.track(timestamp, img, dep, intrinsics,
                                          gt_pose)
         self.frontend()
 
         if is_kf and self.frontend.is_initialized:
             self._kf_since_ba += 1
+            self._kf_since_map += 1
             if (self.global_ba_every > 0
                     and self._kf_since_ba >= self.global_ba_every):
                 self._kf_since_ba = 0
                 self.backend.dense_ba(0, self.video.counter, steps=2)
+            if (self.mapper is not None
+                    and self._kf_since_map >= self.mapping_every):
+                self._kf_since_map = 0
+                if self.multiview_filter():
+                    self.mapper()
         return is_kf
 
     def flush(self):
@@ -157,13 +197,18 @@ class SLAMSystem:
             timestamps=self.video.timestamp[:n].cpu().numpy(),
             n_keyframes=n)
 
-    def terminate(self, stream=None) -> dict:
-        """Final BA, trajectory fill over `stream` (the same items as
-        track: timestamp, image, depth, intrinsics, gt_pose), and ATE.
-        Writes est_poses.npy (c2w [N,4,4]) and, with ground truth,
-        metrics_traj.txt into the output directory."""
+    def terminate(self, stream=None, eval_mesh_path: str = "") -> dict:
+        """Final BA, the checkpoint ``go.ckpt``, trajectory fill over
+        `stream` (the same items as track: timestamp, image, depth,
+        intrinsics, gt_pose) and ATE; with mapping, the final mapping
+        rounds and the mesh, evaluated against the PLY at
+        `eval_mesh_path` when ``meshing.eval_rec`` is on.  Writes
+        est_poses.npy (c2w [N,4,4]) and, with ground truth,
+        metrics_traj.txt into the output directory; with mapping,
+        mesh/*.ply and metrics_mesh.txt."""
         self.finalize_tracking()
         n = self.video.counter
+        self.save_checkpoint(os.path.join(self.output, "go.ckpt"))
         gt_record = []
         if stream is not None:
             def recording(s):
@@ -179,13 +224,196 @@ class SLAMSystem:
                 if self.video.has_gt else []
         np.save(os.path.join(self.output, "est_poses.npy"), c2w)
 
-        metrics = {}
+        metrics, trans_init = {}, None
         if gt_record and all(p is not None for p in gt_record):
             res = evaluate.ate_rmse(c2w, np.stack(gt_record),
                                     correct_scale=True)
+            trans_init = res["alignment"]
             metrics["ate"] = {k: v for k, v in res.items()
                               if k != "alignment"}
             with open(os.path.join(self.output, "metrics_traj.txt"),
                       "w") as f:
                 json.dump(metrics["ate"], f, indent=2)
+
+        if self.mapper is not None:
+            self.multiview_filter()
+            # post_processing_iters final rounds, each at 10x the iterations
+            for _ in range(int(self.cfg["mapping"].get(
+                    "post_processing_iters", 10))):
+                self.mapper(the_end=True)
+            mesh_metrics = self.extract_final_mesh(
+                eval_mesh_path, est_c2w_list=c2w, trans_init=trans_init)
+            if mesh_metrics:
+                metrics["mesh"] = mesh_metrics
         return metrics
+
+    # ------------------------------------------------------------------
+    def _filtered_obb(self):
+        """OBB (+0.1 m margin) of the multiview-filtered points, without
+        the far ones: the culling bound of the final mesh."""
+        v, n = self.video, self.video.counter
+        disps = v.disps_filtered[:n]
+        mean_d = disps.reshape(n, -1).mean(dim=1)[:, None, None]
+        masks = (v.mask_filtered[:n] > 0) & (disps > 0.01 * mean_d)
+        if not bool(masks.any()):
+            return None
+        pts = projective.iproj_world(v.poses_filtered[:n],
+                                     torch.clamp(disps, min=1e-6),
+                                     v.intrinsics * v.device_scale)
+        return OrientedBoundingBox.from_points(pts[masks].cpu().numpy(),
+                                               extend=0.1)
+
+    def extract_final_mesh(self, gt_mesh_path: str = "",
+                           est_c2w_list=None, trans_init=None):
+        """Final mesh: extract -> OBB + projection + component + forecast
+        cull -> ICP alignment to the GT mesh (seeded with the ATE's Sim3)
+        -> save -> evaluate the aligned forecast mesh.  Writes
+        mesh/final_raw.ply, cull_mesh.ply and forecast_mesh.ply (with a
+        GT mesh also the aligned meshes and metrics_mesh.txt); returns
+        the mesh metrics or None."""
+        cfg_m = self.cfg["meshing"]
+        if float(np.abs(self.video.bound).sum()) < 1e-6:
+            return None
+        bound = torch.as_tensor(self.video.bound, dtype=torch.float32,
+                                device=self.device)
+        model = self.mapper.model
+        v, t = M.extract_mesh(model, bound, bound,
+                              resolution=cfg_m["resolution"],
+                              level_set=cfg_m["level_set"])
+        if len(t) == 0:
+            return None
+
+        mesh_dir = os.path.join(self.output, "mesh")
+        os.makedirs(mesh_dir, exist_ok=True)
+        colors = M.extract_vertex_colors(model, bound, v)
+        M.save_ply(os.path.join(mesh_dir, "final_raw.ply"), v, t, colors)
+
+        if est_c2w_list is None:
+            est_c2w_list = self.keyframe_c2w()
+        intr = (self.video.intrinsics * self.video.device_scale).cpu().numpy()
+        (cv_, ct_), (fv, ft) = M.cull_mesh(
+            v, t, est_c2w_list, intr, self.video.ht, self.video.wd,
+            obb=self._filtered_obb(),
+            forecast_radius=cfg_m["forecast_radius"],
+            get_largest_components=cfg_m.get("get_largest_components",
+                                             False),
+            min_area_ratio=cfg_m["remove_small_geometry_threshold"])
+        if len(ct_) == 0:
+            return None
+        M.save_ply(os.path.join(mesh_dir, "cull_mesh.ply"), cv_, ct_)
+        M.save_ply(os.path.join(mesh_dir, "forecast_mesh.ply"), fv, ft)
+
+        if not (cfg_m.get("eval_rec") and gt_mesh_path
+                and os.path.exists(gt_mesh_path)):
+            return None
+        gv, gt_tris = M.load_ply(gt_mesh_path)
+        T = M.align_mesh_icp(cv_, gv, init=trans_init)
+        cva = cv_ @ T[:3, :3].T + T[:3, 3]
+        M.save_ply(os.path.join(mesh_dir, "aligned_mesh.ply"),
+                   cva.astype(np.float32), ct_)
+        fva = (fv @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        M.save_ply(os.path.join(mesh_dir, "forecast_aligned_mesh.ply"),
+                   fva, ft)
+        res = M.eval_mesh(fva, ft, gv, gt_tris,
+                          n_points=cfg_m["n_points_to_eval"],
+                          threshold=cfg_m["mesh_threshold_to_eval"])
+        with open(os.path.join(self.output, "metrics_mesh.txt"), "w") as f:
+            json.dump(res, f, indent=2)
+        return res
+
+    def keyframe_c2w(self) -> np.ndarray:
+        n = self.video.counter
+        return lie.matrix(lie.inv(self.video.poses[:n])).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str, full: bool = True):
+        """go.ckpt, with the JAX package's keys: both networks' parameters
+        (state dicts of numpy arrays), the keyframes' timestamps, poses
+        and disparities and, with full=True, what tracking needs to
+        resume: images (uint8), sensor disparities, features and context
+        (float32), ground-truth poses and intrinsics."""
+        def host(sd):
+            return {k: t.detach().cpu().numpy() for k, t in sd.items()}
+
+        v, n = self.video, self.video.counter
+        state = {
+            "tracking_params": host(self.net.state_dict()),
+            "mapping_params": host(self.mapper.model.state_dict())
+            if self.mapper is not None else None,
+            "timestamps": v.timestamp[:n].cpu().numpy(),
+            "poses": v.poses[:n].cpu().numpy(),
+            "disps": v.disps[:n].cpu().numpy(),
+            "counter": n,
+        }
+        if full and n:
+            state.update({
+                "images_u8": torch.clamp(v.images[:n] * 255.0 + 0.5, 0, 255)
+                .to(torch.uint8).cpu().numpy(),
+                "disps_sens": v.disps_sens[:n].cpu().numpy(),
+                "fmaps": v.fmaps[:n].float().cpu().numpy(),
+                "nets": v.nets[:n].float().cpu().numpy(),
+                "inps": v.inps[:n].float().cpu().numpy(),
+                "poses_gt": v.poses_gt[:n].cpu().numpy(),
+                "has_gt": v.has_gt,
+                "intrinsics": v.intrinsics.cpu().numpy(),
+            })
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+
+    def load_checkpoint(self, path: str, resume_tracking: bool = True):
+        """Restore a go.ckpt written by this package or by the JAX package
+        (flax parameter trees go through models/convert).  A full
+        checkpoint restores every field the factor graph needs, the
+        motion filter's last keyframe and the frontend's state, so
+        tracking continues.  With resume_tracking=True a checkpoint
+        without the full fields raises; resume_tracking=False loads
+        poses and parameters only.  The tracking network's parameters are
+        not restored (the system's own are kept)."""
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        n = state["counter"]
+        if resume_tracking and n and "fmaps" not in state:
+            raise ValueError(
+                f"checkpoint {path} lacks the full tracking fields "
+                f"(fmaps/nets/inps) needed to resume; re-save with "
+                f"save_checkpoint(full=True), or pass "
+                f"resume_tracking=False to load poses/params only")
+
+        def dev(key, dtype=torch.float32):
+            a = np.asarray(state[key])
+            if a.dtype != np.uint8:
+                a = a.astype(np.float32)
+            return torch.as_tensor(a, device=self.device).to(dtype)
+
+        v = self.video
+        v.counter = n
+        v.poses[:n] = dev("poses")
+        v.disps[:n] = dev("disps")
+        v.timestamp[:n] = dev("timestamps")
+        if "fmaps" in state and n:
+            v.images[:n] = dev("images_u8") / 255.0
+            v.disps_sens[:n] = dev("disps_sens")
+            bf16 = torch.bfloat16
+            v.fmaps[:n] = dev("fmaps", bf16)
+            v.nets[:n] = dev("nets", bf16)
+            v.inps[:n] = dev("inps", bf16)
+            v.poses_gt[:n] = dev("poses_gt")
+            v.has_gt = bool(state["has_gt"])
+            v.intrinsics.copy_(dev("intrinsics"))
+            # the motion filter resumes against the last keyframe, the
+            # frontend past its initialization
+            mf = self.motion_filter
+            mf.fmap = v.fmaps[n - 1].float()
+            mf.net = v.nets[n - 1][None].float()
+            mf.inp = v.inps[n - 1][None].float()
+            mf._seen_first = True
+            self.frontend.is_initialized = (
+                n >= self.cfg["tracking"]["warmup"])
+            self.frontend.t1 = n
+        params = state.get("mapping_params")
+        if params is not None and self.mapper is not None:
+            sd = convert_mapping_params(params) if is_flax_tree(params) \
+                else {k: torch.as_tensor(np.asarray(a))
+                      for k, a in params.items()}
+            self.mapper.model.load_state_dict(sd)
+        return state

@@ -87,5 +87,5 @@ class MotionFilter:
         gt = None if gt_pose is None else torch.as_tensor(
             gt_pose, dtype=torch.float32, device=image.device)
         self.video.append(timestamp, pose, disp, depth, intr, gmap,
-                          ctx_net[0], ctx_inp[0], gt)
+                          ctx_net[0], ctx_inp[0], gt, image=image[0])
         return True

@@ -7,6 +7,10 @@ for network features):
   * disps live at 1/8 resolution, initialized to 1
   * sensor depth is subsampled at pixel centers [3::8, 3::8]
   * fmaps carry a rig dim (1 for mono/RGB-D)
+  * images are kept at full resolution, float in [0, 1], for the mapper;
+    the multiview filter publishes ``poses_filtered``,
+    ``disps_filtered`` and ``mask_filtered`` up to ``filtered_id``, the
+    scene ``bound`` and each keyframe's ``update_priority`` (host)
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ import torch
 
 from ..ops import lie, projective
 
-_SHIFT_FIELDS = ("timestamp", "poses", "poses_gt", "disps", "disps_sens",
-                 "disps_up", "fmaps", "nets", "inps", "damping")
+_SHIFT_FIELDS = ("timestamp", "images", "poses", "poses_gt", "disps",
+                 "disps_sens", "disps_up", "fmaps", "nets", "inps", "damping",
+                 "poses_filtered", "disps_filtered", "mask_filtered")
 
 # pairs per frame-distance batch (bounds the transient memory)
 _DISTANCE_CHUNK = 4096
@@ -50,14 +55,25 @@ class VideoBuffer:
         self.inps = torch.zeros((B, h8, w8, 128), dtype=bf16, device=dev)
         # per-frame GRU damping state
         self.damping = torch.full((B, h8, w8), 1e-6, dtype=f32, device=dev)
+        self.images = torch.zeros((B, ht, wd, 3), dtype=f32, device=dev)
+
+        # multiview-filtered state for the mapper
+        self.poses_filtered = lie.identity((B,), device=dev)
+        self.disps_filtered = torch.zeros((B, ht, wd), dtype=f32, device=dev)
+        self.mask_filtered = torch.zeros((B, ht, wd), dtype=f32, device=dev)
+        self.filtered_id = -1
+        self.update_priority = np.zeros((B,), np.float32)
+        self.bound = np.zeros((3, 2), np.float32)
+        self.pose_compensate = lie.identity(device=dev)
 
     def append(self, timestamp, pose, disp, depth, intrinsics, fmap, net,
-               inp, gt_pose=None):
+               inp, gt_pose=None, image=None):
         """Write a new keyframe at the current counter.
 
         depth [ht, wd] or None; fmap [1, h8, w8, 128]; net/inp
         [h8, w8, 128]; pose / disp (scalar or [h8, w8]) may be None to
-        keep the defaults; intrinsics [4] at 1/8 res or None."""
+        keep the defaults; intrinsics [4] at 1/8 res or None; image
+        [ht, wd, 3] in [0, 1] or None."""
         ix = self.counter
         if ix >= self.buffer:
             raise RuntimeError(f"keyframe buffer full ({self.buffer}); raise "
@@ -79,6 +95,8 @@ class VideoBuffer:
         if gt_pose is not None:
             self.has_gt = True
             self.poses_gt[ix] = gt_pose
+        if image is not None:
+            self.images[ix] = image
         self.fmaps[ix] = fmap
         self.nets[ix] = net
         self.inps[ix] = inp
@@ -89,6 +107,7 @@ class VideoBuffer:
         for name in _SHIFT_FIELDS:
             a = getattr(self, name)
             a[ix:-1] = a[ix + 1:].clone()
+        self.update_priority[ix:-1] = self.update_priority[ix + 1:].copy()
         self.counter -= 1
 
     def set_pose(self, ix: int, pose):
@@ -120,3 +139,13 @@ class VideoBuffer:
         self.disps[:n] /= s
         self.poses[:n, :3] *= s
         self.dirty[:n] = True
+
+    def get_mapping_item(self, index: int, decay: float = 0.1):
+        """One keyframe for the mapper: (image [ht, wd, 3], depth [ht, wd],
+        c2w [4, 4], gt c2w, mask [ht, wd]); decays its update priority."""
+        depth = 1.0 / (self.disps_filtered[index] + 1e-7)
+        c2w = lie.matrix(lie.compose(self.pose_compensate,
+                                     lie.inv(self.poses_filtered[index])))
+        self.update_priority[index] *= decay
+        return (self.images[index], depth, c2w, self.poses_gt[index],
+                self.mask_filtered[index])

@@ -19,11 +19,14 @@ as few frames tracks so badly at this size that a rounding difference
 flips a greedy edge choice and the two runs part by decimetres; at 6
 degrees the port agrees with itself to 1e-4 whatever its number of
 threads, so the comparison is one of the two packages, not of luck.
+The JAX package runs in a process of its own (tests/jax_subprocess.py).
 """
 import os
 
 import numpy as np
 import pytest
+
+import jax_subprocess
 
 CKPT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "checkpoints", "droid_synthetic.ckpt")
@@ -82,15 +85,14 @@ def _drive(slam, ds):
     return calls
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def _jax_main(out):
+    """The JAX package's run, in a process of its own (jax_subprocess)."""
     from goslam_tpu.config import default_config, update_recursive
     from goslam_tpu.data.synthetic import Synthetic
     from goslam_tpu.system import SLAMSystem, load_pretrained
 
     cfg = update_recursive(default_config(), OVERRIDES)
-    slam = SLAMSystem(cfg, params=load_pretrained(CKPT),
-                      output=str(tmp_path_factory.mktemp("jax")),
+    slam = SLAMSystem(cfg, params=load_pretrained(CKPT), output=out,
                       only_tracking=True)
     calls = _drive(slam, Synthetic(cfg))
     n_kf = slam.video.counter
@@ -99,6 +101,12 @@ def jax_run(tmp_path_factory):
                 last_loop_t=slam.frontend.last_loop_t,
                 poses=np.asarray(slam.video.poses[:n_kf]),
                 disps=np.asarray(slam.video.disps[:n_kf]))
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return jax_subprocess.run("test_torch_loop_slice",
+                              str(tmp_path_factory.mktemp("jax")))
 
 
 @pytest.fixture(scope="module")

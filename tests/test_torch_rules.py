@@ -5,7 +5,9 @@
   * Device rule: the entry points run on the GPU unless the caller asks
     for the CPU, and raise when no GPU is visible and none was asked for.
   * The command-line entry point runs end to end on the CPU when asked
-    to, and writes the trajectory files.
+    to, and writes the trajectory files (and, with mapping, the meshes
+    and their metrics).
+  * A failure in global BA or in a mapping round propagates.
 """
 import json
 import os
@@ -75,18 +77,25 @@ def test_run_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
                   "--max_frames", "2"])
 
 
-@pytest.mark.parametrize("what", ["mono", "mapping"])
-def test_unported_paths_raise(what, tmp_path):
-    """What this slice does not port says so instead of running
-    something else."""
+@pytest.mark.parametrize("what", ["mono", "make_video", "viz", "multichip"])
+def test_unported_paths_raise(what, tmp_path, monkeypatch):
+    """What the port does not have yet says so instead of running
+    something else: mono, the mesh video, the live viewer, and mapping
+    sharded over more than one GPU."""
     from goslam_tpu_torch.system import SLAMSystem
     cfg = _cfg()
+    device = "cpu"
     if what == "mono":
         cfg["mode"] = "mono"
+    elif what in ("make_video", "viz"):
+        cfg[what] = True
     else:
         cfg["only_tracking"] = False
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        device = "cuda"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+        SLAMSystem(cfg, output=str(tmp_path), device=device)
 
 
 def test_loop_closing_config_builds_a_system(tmp_path):
@@ -121,6 +130,58 @@ def test_global_ba_failure_propagates(tmp_path):
     slam.backend.dense_ba = broken
     with pytest.raises(FloatingPointError, match="global BA failed"):
         slam._drain_one(0.0, None, None, None, None)
+
+
+def test_mapping_failure_propagates(tmp_path):
+    """The JAX package's _safe also swallows a failed mapping round; the
+    port lets it through, out of track's per-frame step."""
+    from goslam_tpu_torch.system import SLAMSystem
+    cfg = _cfg()
+    cfg["only_tracking"] = False
+    cfg["mapping"]["mapping_every"] = 1
+    slam = SLAMSystem(cfg, output=str(tmp_path), device="cpu")
+    slam.motion_filter.track = lambda *a: True
+    slam.frontend = lambda: None
+    slam.frontend.is_initialized = True
+    slam.multiview_filter = lambda: True
+
+    def broken(*a, **k):
+        raise FloatingPointError("mapping failed")
+
+    slam.mapper = broken
+    with pytest.raises(FloatingPointError, match="mapping failed"):
+        slam._drain_one(0.0, None, None, None, None)
+
+
+def test_run_entry_point_maps_on_the_cpu(tmp_path):
+    """python -m goslam_tpu_torch.run without --only_tracking: the demo
+    config at 64x96, 14 frames, with the mapping load cut for the CPU
+    (a config inheriting from the demo's: 256 rays, 8 + 8 samples, one
+    final round of one iteration, meshing at resolution 32).  It tracks,
+    maps, meshes and evaluates against the room's GT mesh."""
+    demo = os.path.join(ROOT, "configs", "Demo", "synthetic.yaml")
+    cfg = tmp_path / "cut.yaml"
+    cfg.write_text(
+        f"inherit_from: {demo}\n"
+        "mapping: {pixels: 256, iters: 1, post_processing_iters: 1}\n"
+        "rendering: {N_samples: 8, N_surface: 8}\n"
+        "meshing: {resolution: 32, n_points_to_eval: 20000}\n")
+    out = tmp_path / "out"
+    res = subprocess.run(
+        [sys.executable, "-m", "goslam_tpu_torch.run", str(cfg),
+         "--device", "cpu", "--output", str(out), "--max_frames", "14",
+         "--image_size", "64", "96"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    for f in ("metrics_traj.txt", "metrics_mesh.txt", "mesh/final_raw.ply",
+              "mesh/cull_mesh.ply", "mesh/forecast_mesh.ply",
+              "est_poses.npy", "go.ckpt"):
+        assert (out / f).exists(), f
+    with open(out / "metrics_mesh.txt") as f:
+        mesh = json.load(f)
+    assert all(np.isfinite(v) for v in mesh.values())
+    assert 0 <= mesh["f_score"] <= 100
 
 
 def test_run_entry_point_on_the_cpu(tmp_path):

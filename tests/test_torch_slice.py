@@ -10,12 +10,15 @@ Keyframe decisions must not hang on rounding, so every frame is admitted
 0``); the frontend and backend compute in fp32.  ``global_ba_every: 4``
 runs the backend's dense BA during tracking too.  The motion filter and
 the trajectory filler run in bf16 in both packages, whatever
-``compute_dtype`` says.
+``compute_dtype`` says.  The JAX package runs in a process of its own
+(tests/jax_subprocess.py).
 """
 import os
 
 import numpy as np
 import pytest
+
+import jax_subprocess
 
 CKPT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "checkpoints", "droid_synthetic.ckpt")
@@ -54,19 +57,24 @@ def _drive(slam, ds):
     return n_kf, metrics
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def _jax_main(out):
+    """The JAX package's run, in a process of its own (jax_subprocess)."""
     from goslam_tpu.config import default_config, update_recursive
     from goslam_tpu.data.synthetic import Synthetic
     from goslam_tpu.system import SLAMSystem, load_pretrained
 
-    out = str(tmp_path_factory.mktemp("jax"))
     cfg = update_recursive(default_config(), OVERRIDES)
     slam = SLAMSystem(cfg, params=load_pretrained(CKPT), output=out,
                       only_tracking=True)
     n_kf, metrics = _drive(slam, Synthetic(cfg))
     return dict(n_kf=n_kf, metrics=metrics, out=out,
                 poses=np.asarray(slam.video.poses[:n_kf]))
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return jax_subprocess.run("test_torch_slice",
+                              str(tmp_path_factory.mktemp("jax")))
 
 
 @pytest.fixture(scope="module")

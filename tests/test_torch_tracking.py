@@ -1,8 +1,9 @@
 """The port's host-side copies and tracking state against the JAX package.
 
 The port keeps its own copies of the JAX package's JAX-free modules
-(config, synthetic data, greedy scan, shapes, evaluation): these tests
-hold each copy to its original.  The keyframe store (tracking/video.py)
+(config, synthetic data, greedy scan, shapes, evaluation, the oriented
+bounding box, the mesher's host numpy and the native C++ sources): these
+tests hold each copy to its original.  The keyframe store (tracking/video.py)
 is compared after the same appends, a keyframe removal, distances and a
 normalization.  Inputs are made with numpy from a seed.
 """
@@ -20,12 +21,16 @@ from goslam_tpu.tracking.video import VideoBuffer as JVideo
 from goslam_tpu.utils import evaluate as jevaluate
 from goslam_tpu.utils import greedy as jgreedy
 from goslam_tpu.utils import shapes as jshapes
+from goslam_tpu.mapping import mesher as jmesher
+from goslam_tpu.utils.obb import OrientedBoundingBox as JOBB
 from goslam_tpu_torch import config
 from goslam_tpu_torch.data.synthetic import Synthetic
 from goslam_tpu_torch.ops import lie
 from goslam_tpu_torch.tracking.factor_graph import FactorGraph
 from goslam_tpu_torch.tracking.video import VideoBuffer
+from goslam_tpu_torch.mapping import mesher
 from goslam_tpu_torch.utils import evaluate, greedy, shapes
+from goslam_tpu_torch.utils.obb import OrientedBoundingBox
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,9 +83,68 @@ def test_ate_is_the_jax_packages(rng):
     assert got["n_poses"] == 19
 
 
+def test_obb_is_the_jax_packages(rng):
+    """PCA box (with enlarge and extend), point-in-box and its AABB."""
+    pts = (rng.standard_normal((500, 3)) * [2.0, 0.5, 1.0]
+           + [1.0, -2.0, 0.3]).astype(np.float32)
+    probe = (rng.standard_normal((300, 3)) * 2.0).astype(np.float32)
+    for kw in ({}, {"enlarge": 1.2, "extend": 0.1}):
+        got, expect = (OrientedBoundingBox.from_points(pts, **kw),
+                       JOBB.from_points(pts, **kw))
+        for name in ("center", "R", "extent"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(expect, name))
+        np.testing.assert_array_equal(got.contains(probe),
+                                      expect.contains(probe))
+        np.testing.assert_array_equal(got.to_aabb(), expect.to_aabb())
+
+
+def _code_lines(path):
+    """The lines of a C++ source with its // comments taken out."""
+    with open(path) as f:
+        lines = [line.split("//")[0].rstrip() for line in f]
+    return [line for line in lines if line]
+
+
+@pytest.mark.parametrize("name", ["marching.cpp", "raster.cpp"])
+def test_native_sources_are_the_jax_packages(name):
+    """The port builds its own copies of the native helpers: the JAX
+    package's sources line for line, comments aside (the copies' comments
+    name no path outside the repository)."""
+    assert _code_lines(os.path.join(ROOT, "goslam_tpu_torch", "native",
+                                    name)) == \
+        _code_lines(os.path.join(ROOT, "goslam_tpu", "native", name))
+
+
+def test_mesher_host_functions_are_the_jax_packages(rng):
+    """The mesher's numpy half on the same inputs: bound cull, point
+    masks against a depth map (forecast radius), surface sampling with
+    a seeded generator."""
+    v = rng.uniform(-2, 2, (300, 3)).astype(np.float32)
+    v[:, 2] += 4.0
+    t = rng.integers(0, 300, (500, 3)).astype(np.int32)
+    bound = np.asarray([[-1.5, 1.5], [-1.5, 1.5], [2.5, 5.5]])
+    for a, b in zip(mesher.cull_by_bound(v, t, bound),
+                    jmesher.cull_by_bound(v, t, bound)):
+        np.testing.assert_array_equal(a, b)
+    depth = rng.uniform(3.0, 6.0, (2, 24, 32)).astype(np.float32)
+    depth[:, :4] = 0.0
+    c2w = [np.eye(4), np.eye(4)]
+    c2w[1][:3, 3] = [0.2, 0.0, -0.3]
+    intr = (20.0, 20.0, 15.5, 11.5)
+    for r in (0.0, 8.0):
+        for a, b in zip(mesher.point_masks(v, depth, c2w, intr, 24, 32, r),
+                        jmesher.point_masks(v, depth, c2w, intr, 24, 32, r)):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        mesher.sample_surface(v, t, 1000, np.random.default_rng(1)),
+        jmesher.sample_surface(v, t, 1000, np.random.default_rng(1)))
+
+
 def test_video_buffer_matches_jax(rng):
-    """append (sensor depth subsampled at [3::8], zeros give no prior),
-    remove_keyframe (state above shifts down, the last row stays),
+    """append (sensor depth subsampled at [3::8], zeros give no prior,
+    the image kept), remove_keyframe (state above shifts down, the last
+    row stays; the filtered state and update priorities too),
     distance and normalize."""
     B, ht, wd = 6, 32, 48
     jv = JVideo(buffer=B, ht=ht, wd=wd)
@@ -94,7 +158,7 @@ def test_video_buffer_matches_jax(rng):
         fmap = rng.standard_normal((1, 4, 6, 128)).astype(np.float32)
         ctx = rng.standard_normal((2, 4, 6, 128)).astype(np.float32)
         gt = np.eye(4, dtype=np.float32)
-        image = np.zeros((ht, wd, 3), np.float32)
+        image = rng.random((ht, wd, 3)).astype(np.float32)
         jv.append(float(k), jnp.asarray(image), jnp.asarray(pose),
                   None if k else 1.0, jnp.asarray(depth), jnp.asarray(intr),
                   jnp.asarray(fmap), jnp.asarray(ctx[0]),
@@ -104,12 +168,24 @@ def test_video_buffer_matches_jax(rng):
                   torch.from_numpy(fmap).to(torch.bfloat16),
                   torch.from_numpy(ctx[0]).to(torch.bfloat16),
                   torch.from_numpy(ctx[1]).to(torch.bfloat16),
-                  torch.from_numpy(gt))
+                  torch.from_numpy(gt), image=torch.from_numpy(image))
+    # the multiview filter's state shifts with the keyframes
+    prio = rng.random(B).astype(np.float32)
+    jv.update_priority[:] = prio
+    tv.update_priority[:] = prio
+    for name in ("disps_filtered", "mask_filtered"):
+        a = rng.random((B, ht, wd)).astype(np.float32)
+        setattr(jv, name, jnp.asarray(a))
+        getattr(tv, name)[:] = torch.from_numpy(a)
+    jv.poses_filtered = jv.poses
+    tv.poses_filtered[:] = tv.poses
     jv.remove_keyframe(2)
     tv.remove_keyframe(2)
     assert tv.counter == jv.counter == 4
+    np.testing.assert_array_equal(tv.update_priority, jv.update_priority)
     for name in ("timestamp", "poses", "disps", "disps_sens", "fmaps",
-                 "nets", "inps", "poses_gt", "damping"):
+                 "nets", "inps", "poses_gt", "damping", "images",
+                 "poses_filtered", "disps_filtered", "mask_filtered"):
         np.testing.assert_array_equal(
             getattr(tv, name).float().numpy(),
             np.asarray(getattr(jv, name).astype(jnp.float32)), name)
