@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # everything, as a check on the card
     python3 chip_smoke.py --profile    # also timed and traced runs of three paths
     python3 chip_smoke.py --paths loop-160    # only some of the paths
+    python3 chip_smoke.py --memory     # name what holds memory between paths
 
 Phases, each of which exits non-zero on failure (nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -42,8 +43,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                      package's range over seven mapper seeds on a CPU
                      (MAP_GATES), the final mesh made again on the CPU
                      equal to the card's, the trained map's |SDF| at the
-                     observed points at most half an untrained map's
-                     (mesh_checks, which also meshes the untrained map
+                     observed points at most MAP_LEARNT_RATIO of an
+                     untrained map's, 1.25x the JAX package's largest
+                     ratio over seeds 0-6 (mesh_checks, which also meshes
+                     the untrained map
                      as a control of MAP_GATES); edge_system
                      and alt_corr launched.  Then phase map_step (one
                      train step at the reference's load of 4,400 rays,
@@ -58,6 +61,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                      candidate accepted, ATE < LOOP_ATE_GATE;
        loop-160-off  loop-160 without loop closing (reported beside it);
        loop-160-240  loop-160 at 240x320 (finite, all kernels launched);
+       train-128     the DroidNet trainer (trainer.fit, the flags'
+                     defaults of python -m goslam_tpu_torch.train: 128x192
+                     with 240x320 mixed in, eight unrolled update and BA
+                     iterations, the warm curriculum, photometric
+                     augmentation) resumed from the checkpoint on a small
+                     seeded scene pool.  Gates: one step on the card
+                     against the CPU's within TRAIN_*_TOL, and the same
+                     step with the edge system detached from the graph
+                     (a control) outside them; TRAIN_STEPS steps at both
+                     resolutions with every loss and gradient norm
+                     finite; the checkpoint fit writes read back equal to
+                     the parameters in memory; no kernel launched (the
+                     trainer's BA differentiates the plain edge system);
+     After each path the memory it leaves allocated is printed (with
+     --memory, by the repository line that allocated it);
      After accuracy-128, the host synchronizations of one more frontend
      step and of its dba.ba call are counted, with their sites
      (torch.cuda.set_sync_debug_mode("warn")): a measurement, not a gate;
@@ -77,6 +95,7 @@ without printing a result when there is none.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -127,9 +146,18 @@ MAP_GATES = {
 }
 # map-128 tracks as accuracy-128 does (the mapper writes no pose back)
 MAP_ATE_TOL = 1e-3
-# map-128's trained map: its median |SDF| at the observed points at most
-# this share of an untrained map's (mesh_checks)
-MAP_LEARNT_RATIO = 0.5
+# the learnt-map ratio of the JAX package on map-128's configuration, on
+# a CPU, for mapper seeds 0-6 (scripts/map_reference_jax.py --seed N):
+# the trained map's median |SDF| at the keyframes' observed points over
+# that of the same mapper's initial parameters
+JAX_MAP_128_LEARNT_RATIO = {
+    0: 0.3736779132716941, 1: 0.5081332327972335, 2: 0.317043952432814,
+    3: 0.38843890447589025, 4: 0.356088742239054, 5: 0.5314021107490668,
+    6: 0.26721458222041433,
+}
+# map-128's gate (mesh_checks): the same ratio at most 1.25x the JAX
+# package's largest; a map that learnt nothing reads 1 and fails it
+MAP_LEARNT_RATIO = 1.25 * max(JAX_MAP_128_LEARNT_RATIO.values())
 # map_step: the reference's ray load (goslam_tpu/config.py:40-41)
 MAP_STEP_PIXELS = 4400
 MAP_STEP_WINDOW = 22
@@ -138,6 +166,24 @@ MAP_STEP_WINDOW = 22
 # (readings on an H100: 1.7e-7 and 3.1e-6)
 MAP_STEP_LOSS_TOL = 1e-5
 MAP_STEP_GRAD_TOL = 1e-4
+# train-128: scripts/train_synthetic.py's recipe at full width, resumed
+# from the in-tree checkpoint, on a pool of TRAIN_SCENES seeded scenes
+# (128x192 and 240x320 taking turns), TRAIN_STEPS steps of trainer.fit
+TRAIN_SCENES = 4
+TRAIN_STEPS = 16
+# one train step on the card against the CPU's at 128x192, TF32 off: the
+# loss terms and the gradient norm relative to the CPU's, each
+# parameter's gradient relative to its largest entry; the biases of
+# fnet's convolutions that feed an instance norm have a gradient that is
+# zero but for rounding and are held below TRAIN_ZERO_GRAD_TOL of the
+# largest gradient entry instead.  Readings on an H100 over three runs:
+# loss terms 2.1e-4 to 2.7e-4 (the gradient norm), gradients 2.8e-3 to
+# 1.7e-2, the zero-gradient biases 7.8e-7; the control with the edge
+# system detached 1.08 (the CPU's test against the JAX package, with the
+# same rule, reads 4.8e-4 and 2.6e-2)
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_ZERO_GRAD_TOL = 1e-5
 # gate of loop-160: about 1.5x the ATE the port measured on an H100
 # (0.37-0.39 m over four runs; 0.48 m without loop closing)
 LOOP_ATE_GATE = 0.58
@@ -638,6 +684,45 @@ PATHS = {
     "loop-160-240": (lambda: loop_config(240, 320), None,
                      ("edge_system", "alt_corr", "schur_matvec"), 129),
 }
+
+
+TRAIN_PATH = "train-128"
+ALL_PATHS = tuple(PATHS) + (TRAIN_PATH,)
+
+
+def memory_held(by_site: bool) -> dict:
+    """What stays allocated on the card once a path's objects are gone:
+    the bytes; with `by_site` (allocation history recorded) the bytes of
+    the live blocks by the innermost line of this repository on the stack
+    that allocated them; and the bytes left once cuBLAS's workspaces are
+    released (they are made again at the next matmul)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    out = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    if by_site:
+        sites = {}
+        for seg in torch.cuda.memory._snapshot()["segments"]:
+            for b in seg["blocks"]:
+                if b["state"] != "active_allocated":
+                    continue
+                frames = [f for f in b.get("frames", [])
+                          if f["filename"].startswith(ROOT + os.sep)]
+                site = (f"{os.path.relpath(frames[0]['filename'], ROOT)}:"
+                        f"{frames[0]['line']}" if frames else
+                        "outside the repository (no Python frame of it)")
+                sites[site] = sites.get(site, 0) + b["size"]
+        out["by_site_gb"] = {k: v / 1e9 for k, v in sorted(
+            sites.items(), key=lambda kv: -kv[1])[:12]}
+    # what cuBLAS keeps: PyTorch allocates each handle's workspace (one
+    # per thread and stream that ran a matmul, the autograd engine's
+    # included) through the caching allocator and keeps it
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        out["without_cublas_workspaces_gb"] = \
+            torch.cuda.memory_allocated() / 1e9
+    return out
 
 
 class ShapeRecorder:
@@ -1283,13 +1368,221 @@ def summarize_profile(prof, wall_s: float, out_dir: str):
     }
 
 
+def _zero_grad_param(name: str) -> bool:
+    """fnet's convolutions that feed an instance norm, which removes their
+    bias: its gradient is zero but for rounding."""
+    return (name.startswith("fnet.") and name.endswith(".bias")
+            and name != "fnet.conv2.bias")
+
+
+def train_vs_cpu(cfg, model, scene, draws):
+    """One train step's loss terms and gradients on the card against the
+    CPU's (same parameters, scene and draws, TF32 off), and the control:
+    the same step on the card with the edge system's outputs detached from
+    the graph, what launching the edge-system kernel on inputs that
+    require grad would do (dba.build_edge_system refuses that; checked
+    here too).  Both must hold TRAIN_*_TOL, the control must miss the
+    gradient tolerance."""
+    import copy
+    from goslam_tpu_torch.ops import dba
+    from goslam_tpu_torch.train import trainer as T
+
+    def step(m, device):
+        t0 = time.perf_counter()
+        loss, metrics, grads = T.Trainer(cfg, m).gradients(
+            *[torch.from_numpy(a).to(device) for a in scene], draws)
+        vals = dict(loss=float(loss), gnorm=float(torch.sqrt(
+            sum((g * g).sum() for g in grads))),
+            **{k: float(v) for k, v in metrics.items()})
+        names = [n for n, _ in m.named_parameters()]
+        return vals, {n: g.detach().double().cpu()
+                      for n, g in zip(names, grads)}, \
+            time.perf_counter() - t0
+
+    def errors(got, want):
+        (gv, gg, _), (wv, wg, _) = got, want
+        scale = max(float(g.abs().max()) for g in wg.values())
+        zero = max(max(float(gg[n].abs().max()), float(wg[n].abs().max()))
+                   for n in wg if _zero_grad_param(n)) / scale
+        grads = {n: float((gg[n] - wg[n]).abs().max()
+                          / max(float(wg[n].abs().max()), 1e-30))
+                 for n in wg if not _zero_grad_param(n)}
+        worst = max(grads, key=grads.get)
+        return {"loss_terms": {k: abs(gv[k] - wv[k]) / abs(wv[k])
+                               for k in wv},
+                "grad_worst": [worst, grads[worst]],
+                "grad_median": float(np.median(list(grads.values()))),
+                "zero_grad_share": zero}
+
+    cpu = step(copy.deepcopy(model).cpu(), "cpu")
+    card = step(model, "cuda")
+    plain = dba.build_edge_system_plain
+    dba.build_edge_system_plain = lambda *a: dba.EdgeSystem(
+        *[t.detach() for t in plain(*a)])
+    try:
+        control = step(model, "cuda")
+    finally:
+        dba.build_edge_system_plain = plain
+    # the trap itself: the kernel's dispatch refuses inputs that require
+    # grad
+    dev = torch.device("cuda")
+    P, h, w, E = 3, 8, 12, 4
+    poses = torch.zeros((P, 7), device=dev)
+    poses[:, 6] = 1.0
+    poses.requires_grad_(True)
+    try:
+        dba.build_edge_system(
+            poses, torch.ones((P, h, w), device=dev),
+            torch.tensor([10.0, 10.0, 6.0, 4.0], device=dev),
+            torch.zeros((E, h, w, 2), device=dev),
+            torch.ones((E, h, w, 2), device=dev),
+            torch.tensor([0, 1, 1, 2], device=dev),
+            torch.tensor([1, 0, 2, 1], device=dev),
+            torch.ones(E, dtype=torch.bool, device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    out = {"cpu_s": cpu[2], "card_s": card[2], "cpu": cpu[0],
+           "card": card[0], "vs_cpu": errors(card, cpu),
+           "control_detached_ba": errors(control, cpu),
+           "kernel_refuses_grad": refused}
+    e, c = out["vs_cpu"], out["control_detached_ba"]
+    if not (max(e["loss_terms"].values()) <= TRAIN_LOSS_TOL
+            and e["grad_worst"][1] <= TRAIN_GRAD_TOL
+            and e["zero_grad_share"] <= TRAIN_ZERO_GRAD_TOL):
+        raise SystemExit(f"train-128: the card's step is not the CPU's: {e}")
+    if not c["grad_worst"][1] > TRAIN_GRAD_TOL:
+        raise SystemExit(f"train-128: the detached control passes the "
+                         f"gradient gate: {c}")
+    if not refused:
+        raise SystemExit("train-128: the edge-system kernel took inputs "
+                         "that require grad")
+    return out
+
+
+def train_path(out_dir: str, trace: bool = False):
+    """Path train-128: python -m goslam_tpu_torch.train's fit at
+    scripts/train_synthetic.py's defaults (128x192 with 240x320 mixed in,
+    seven frames, radius 2, long skips 4 and 6, eight unrolled iterations
+    of two BA steps, the warm curriculum and photometric augmentation),
+    resumed from the in-tree checkpoint, on TRAIN_SCENES seeded scenes.
+    First one step against the CPU's (train_vs_cpu); then TRAIN_STEPS
+    steps of fit with the kernels' launch counts reset just before and
+    read just after: every loss and gnorm finite, the checkpoint fit
+    writes read back equal to the parameters in memory.  Reports the
+    median step time at each resolution after its first step (each step
+    ended by a synchronize), the peak memory, the host synchronizations
+    of one more step and the kernels' launches (the trainer's BA
+    differentiates the plain edge system, so none); with `trace`, a few
+    steps under torch.profiler."""
+    from goslam_tpu_torch.models.droidnet import DroidNet
+    from goslam_tpu_torch.ops import kernels
+    from goslam_tpu_torch.train import trainer as T
+
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = T.TrainConfig(ht=128, wd=192, multires=((240, 320),),
+                        steps=10000, n_scenes=TRAIN_SCENES)
+    model = DroidNet()
+    model.load_state_dict(T.load_checkpoint(CKPT)[0])
+    model = model.cuda()
+    scene = T.make_scene(cfg.seed * 10007, cfg)
+    gen = torch.Generator().manual_seed(0)
+    draws = T.sample_draws(cfg, cfg.ht, cfg.wd, gen)._replace(do_warm=True)
+    res = {"vs_cpu": train_vs_cpu(cfg, model, scene, draws)}
+    print(f"train-128 vs cpu: {json.dumps(res['vs_cpu'])}", flush=True)
+
+    # fit, with every step timed and its metrics kept
+    steps, step = [], T.Trainer.step
+
+    def timed_step(self, images, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(self, images, *a, **k)
+        torch.cuda.synchronize()
+        steps.append((tuple(images.shape[1:3]), time.perf_counter() - t0,
+                      {n: float(v) for n, v in m.items()}))
+        return m
+
+    ckpt = os.path.join(out_dir, "droid_train.ckpt")
+    run_cfg = dataclasses.replace(cfg, steps=TRAIN_STEPS)
+    gc.collect()
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    T.Trainer.step = timed_step
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model = T.fit(run_cfg, ckpt, log_every=4, model=model,
+                      device="cuda")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        T.Trainer.step = step
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise SystemExit(f"train-128: kernels launched: {launches}")
+    bad = [m for _, _, m in steps
+           if not all(np.isfinite(m[k]) for k in ("loss", "gnorm"))]
+    if len(steps) != TRAIN_STEPS or bad:
+        raise SystemExit(f"train-128: {len(steps)} steps, non-finite: {bad}")
+    sd, _ = T.load_checkpoint(ckpt)
+    differ = [n for n, t in model.state_dict().items()
+              if not torch.equal(sd[n].to(t.device), t)]
+    if differ:
+        raise SystemExit(f"train-128: the checkpoint differs from the "
+                         f"parameters in memory at {differ[:5]}")
+    by_res = {}
+    for hw, dt, _ in steps:
+        by_res.setdefault(f"{hw[0]}x{hw[1]}", []).append(dt)
+    if set(by_res) != {"128x192", "240x320"}:
+        raise SystemExit(f"train-128: steps at {sorted(by_res)} only")
+    res.update({
+        "steps": len(steps), "total_s": total_s,
+        "median_step_s": {k: float(np.median(v[1:])) if len(v) > 1
+                          else None for k, v in by_res.items()},
+        "steps_at": {k: len(v) for k, v in by_res.items()},
+        "first_step_s": {k: v[0] for k, v in by_res.items()},
+        "loss": [m["loss"] for _, _, m in steps],
+        "gnorm": [m["gnorm"] for _, _, m in steps],
+        "peak_mem_gb": peak / 1e9, "mem_at_start_gb": mem_at_start / 1e9,
+        "launches": launches, "tf32": torch.backends.cudnn.allow_tf32,
+    })
+
+    # the host synchronizations of one more step
+    trainer = T.Trainer(run_cfg, model)
+    x = [torch.from_numpy(a).cuda() for a in scene]
+    n_sync, sites = sync_sites(lambda: trainer.step(*x, draws))
+    res["syncs"] = {"step": {"count": n_sync, "sites": sites}}
+    print(f"host syncs train-128: {json.dumps(res['syncs'])}", flush=True)
+    if trace:
+        from torch.profiler import ProfilerActivity
+        trainer.step(*x, draws)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) \
+                as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                trainer.step(*x, draws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res["profile"] = summarize_profile(prof, wall, out_dir)
+    say(f"path train-128: {json.dumps(res)}")
+    print(f"  train-128: {len(steps)} steps in {total_s:.1f} s, median step "
+          f"{res['median_step_s']} s, peak {peak / 1e9:.2f} GB, kernels "
+          f"{launches}", flush=True)
+    return res
+
+
+# name, source, the JAX package's function that reaches pl.pallas_call,
+# the path whose launches the result line reports
 KERNELS = (
     ("edge_system", "goslam_tpu_torch/csrc/edge_system.cu",
-     "goslam_tpu/ops/pallas_kernels.py:43", "accuracy-128"),
+     "goslam_tpu/ops/pallas_kernels.py:172", "accuracy-128"),
     ("alt_corr", "goslam_tpu_torch/csrc/alt_corr.cu",
-     "goslam_tpu/ops/pallas_corr.py:70", "accuracy-128"),
+     "goslam_tpu/ops/pallas_corr.py:141", "accuracy-128"),
     ("schur_matvec", "goslam_tpu_torch/csrc/schur_matvec.cu",
-     "goslam_tpu/ops/pallas_kernels.py:281", "loop-160"),
+     "goslam_tpu/ops/pallas_kernels.py:406", "loop-160"),
 )
 
 
@@ -1301,18 +1594,23 @@ def main(argv=None) -> int:
                              "(mapping's too) and PCG "
                              "iterations, one under torch.profiler (device "
                              "idle share, largest kernels)")
-    parser.add_argument("--paths", default=",".join(PATHS),
+    parser.add_argument("--paths", default=",".join(ALL_PATHS),
                         help="comma-separated paths to drive (default: "
                              "all); the result line is printed only when "
                              "all of them ran")
+    parser.add_argument("--memory", action="store_true",
+                        help="record the allocations' Python stacks and "
+                             "name what holds the memory left allocated "
+                             "after each path")
     parser.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"),
                         help="directory for the trajectories and the "
                              "profile table")
     args = parser.parse_args(argv)
     names = [n for n in args.paths.split(",") if n]
     for n in names:
-        if n not in PATHS:
-            parser.error(f"unknown path {n!r}; known: {', '.join(PATHS)}")
+        if n not in ALL_PATHS:
+            parser.error(f"unknown path {n!r}; known: "
+                         f"{', '.join(ALL_PATHS)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1374,11 +1672,20 @@ def main(argv=None) -> int:
             raise SystemExit(f"PCG with 32 iterations lags Cholesky by more "
                              f"than {CG32_LAG}x: {res}")
 
-    runs = {}
+    runs, held = {}, {}
+    if args.memory:
+        torch.cuda.memory._record_memory_history(max_entries=1_000_000)
     for name in names:
-        runs[name] = run_path(name, os.path.join(args.out, name),
-                              syncs=name in ("accuracy-128", "map-128"),
-                              step=name == "map-128")
+        if name == TRAIN_PATH:
+            train = train_path(os.path.join(args.out, name))
+        else:
+            runs[name] = run_path(name, os.path.join(args.out, name),
+                                  syncs=name in ("accuracy-128", "map-128"),
+                                  step=name == "map-128")
+        held[name] = memory_held(args.memory)
+        print(f"memory after {name}: {json.dumps(held[name])}", flush=True)
+    if args.memory:
+        torch.cuda.memory._record_memory_history(enabled=None)
     if "map-128" in runs and "accuracy-128" in runs:
         d = abs(runs["map-128"]["ate_rmse"] - runs["accuracy-128"]["ate_rmse"])
         print(f"map-128 ATE {runs['map-128']['ate_rmse']:.5f} m, "
@@ -1398,6 +1705,9 @@ def main(argv=None) -> int:
                          phases=True)
                 run_path(name, os.path.join(args.out, f"profile-{name}"),
                          trace=True)
+        if TRAIN_PATH in names:
+            train_path(os.path.join(args.out, f"profile-{TRAIN_PATH}"),
+                       trace=True)
 
     # every kernel at every shape a path gave it, timed
     checked = {"edge_system": {}, "alt_corr": {}, "schur_matvec": {}}
@@ -1443,7 +1753,7 @@ def main(argv=None) -> int:
     print(f"lost per run, ms (launches x (ms - bound_ms) over "
           f"{', '.join(runs)}): {json.dumps(lost)}", flush=True)
 
-    if set(names) != set(PATHS):
+    if set(names) != set(ALL_PATHS):
         print("not all paths were driven: no result line", file=sys.stderr)
         return 1
 

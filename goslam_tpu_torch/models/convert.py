@@ -5,7 +5,9 @@ arrays (flax names, HWIO conv kernels); its trainer pickles that tree
 together with the training config (``checkpoints/droid_synthetic.ckpt``).
 ``flax_to_state_dict`` maps it onto the port's modules, which use DROID's
 own torch names and OIHW kernels, so a torch ``droid.pth`` state dict
-loads into the same modules unchanged.  Unpickling needs numpy alone.
+loads into the same modules unchanged; ``state_dict_to_flax`` is its
+inverse, with which the port's trainer writes the JAX trainer's
+checkpoint format.  Unpickling needs numpy alone.
 """
 from __future__ import annotations
 
@@ -65,6 +67,41 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["weight_calib"] = torch.tensor(
         float(np.asarray(params.get("weight_calib", 1.0))))
     return sd
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's DroidNet state dict -> the JAX package's flax param tree
+    of fp32 numpy arrays (HWIO kernels), the inverse of
+    ``flax_to_state_dict``.  ``weight_calib`` is not a parameter of the
+    flax tree (the JAX package's config carries it) and is left out."""
+    def conv(prefix):
+        w = sd[prefix + ".weight"].detach().cpu().float().numpy()
+        return {"kernel": np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0))),
+                "bias": sd[prefix + ".bias"].detach().cpu().float().numpy()
+                .copy()}
+
+    tree: Dict = {}
+    for enc in ("fnet", "cnet"):
+        node = tree[enc] = {}
+        for fname, tname in _ENC.items():
+            if f"{enc}.{tname}.weight" in sd:
+                node[fname] = conv(f"{enc}.{tname}")
+            else:
+                node[fname] = {sub: conv(f"{enc}.{tname}.{tsub}")
+                               for sub, tsub in _BLOCK.items()
+                               if f"{enc}.{tname}.{tsub}.weight" in sd}
+    upd = tree["update"] = {}
+    for fname, tname in _UPDATE.items():
+        if fname == "gru":
+            subs = sorted({k.split(".")[2] for k in sd
+                           if k.startswith("update.gru.")})
+            upd[fname] = {sub: conv(f"update.gru.{sub}") for sub in subs}
+        elif fname == "agg":
+            upd[fname] = {sub: conv(f"update.agg.{tsub}")
+                          for sub, tsub in _AGG.items()}
+        else:
+            upd[fname] = conv(f"update.{tname}")
+    return tree
 
 
 def convert_mapping_params(params: Mapping) -> Dict[str, torch.Tensor]:

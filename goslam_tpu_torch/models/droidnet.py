@@ -13,6 +13,9 @@ port.
     and weight heads.
   * GraphAgg: split into ``edge_features`` (per edge) and ``frame_head``
     (per frame, always fp32) around a segment mean over the source frame.
+  * ``GradClip`` on the delta and weight heads and on the damping conv:
+    the identity forward, and a backward that zeroes every gradient entry
+    above 0.01 in magnitude or not finite (DROID's GradientClip).
 
 Compute dtype: every conv of a module runs in its ``dtype`` (fp32 or
 bf16; parameters stay fp32).  Instance-norm statistics, the GRU global
@@ -28,6 +31,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 CORR_CHANNELS = 196
+
+
+class GradClip(torch.autograd.Function):
+    """Identity forward; the backward zeroes each gradient entry with
+    |g| > 0.01 or g not finite."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ok = torch.isfinite(g) & (g.abs() <= 0.01)
+        return torch.where(ok, g, torch.zeros_like(g))
+
+
+def grad_clip(x: torch.Tensor) -> torch.Tensor:
+    return GradClip.apply(x)
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -148,7 +169,7 @@ class GraphAgg(nn.Module):
         Returns (eta [P,H,W], upmask [P,H,W,576] or None)."""
         f32 = torch.float32
         agg = F.relu(conv(self.conv2, _nchw(agg.float()), f32))
-        eta = F.softplus(conv(self.eta[0], agg, f32))
+        eta = F.softplus(grad_clip(conv(self.eta[0], agg, f32)))
         upmask = _nhwc(conv(self.upmask[0], agg, f32)) if want_upmask \
             else None
         return 0.01 * eta[:, 0], upmask
@@ -208,10 +229,11 @@ class UpdateModule(nn.Module):
         f = F.relu(conv(self.flow_encoder[2], f, dtype))
 
         net = self.gru(net, torch.cat([inp, c, f], dim=1), dtype)
-        delta = conv(self.delta[2], F.relu(conv(self.delta[0], net, dtype)),
-                     dtype)
-        weight = torch.sigmoid(conv(
-            self.weight[2], F.relu(conv(self.weight[0], net, dtype)), dtype))
+        delta = grad_clip(conv(self.delta[2], F.relu(
+            conv(self.delta[0], net, dtype)), dtype))
+        weight = torch.sigmoid(grad_clip(conv(
+            self.weight[2], F.relu(conv(self.weight[0], net, dtype)),
+            dtype)))
         net, delta, weight = _nhwc(net), _nhwc(delta), _nhwc(weight)
         if ii is None:
             return net, delta, weight
@@ -239,19 +261,25 @@ class DroidNet(nn.Module):
         return torch.tanh(net), F.relu(inp)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]: lecun
+# normal init draws from it scaled by 1 / this, so the variance is 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
 def init_droidnet(seed: int = 0, device=None) -> DroidNet:
-    """Randomly initialized DroidNet (uniform fan-in init from an explicit
-    generator seeded with `seed`)."""
+    """Randomly initialized DroidNet, drawn as flax's ``nn.Conv`` draws
+    (the JAX package's initialization): kernels from a normal truncated
+    at two standard deviations with variance 1/fan_in (lecun normal),
+    zero biases; from an explicit generator seeded with `seed`."""
     g = torch.Generator().manual_seed(seed)
     net = DroidNet()
     with torch.no_grad():
         for m in net.modules():
             if isinstance(m, nn.Conv2d):
-                bound = 1.0 / (m.weight[0].numel() ** 0.5)
-                m.weight.copy_(torch.rand(m.weight.shape, generator=g)
-                               * 2 * bound - bound)
-                m.bias.copy_(torch.rand(m.bias.shape, generator=g)
-                             * 2 * bound - bound)
+                std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                m.bias.zero_()
     return net.to(device)
 
 

@@ -1,5 +1,8 @@
-"""Host C++ helpers of the mesher, bound with ctypes.
+"""Host C++ helpers of the backend and the mesher, bound with ctypes.
 
+  * ``greedy_propose``: the backend's greedy, distance-sorted edge
+    proposal with NMS suppression and the loop-closing vote
+    (``greedy.cpp``);
   * ``marching_cubes``: iso-surface extraction by marching tetrahedra
     with vertex deduplication (``marching.cpp``);
   * ``render_depth``: a z-buffer depth rasterizer, the occlusion oracle
@@ -47,8 +50,13 @@ def build(name: str) -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    out = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, src,
-                          "-o", tmp], capture_output=True, text=True)
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        out = subprocess.run([cxx, *CXX_FLAGS, src, "-o", tmp],
+                             capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"building {name}.cpp failed: no compiler "
+                           f"{cxx!r}") from e
     if out.returncode != 0:
         raise RuntimeError(f"building {name}.cpp failed:\n{out.stderr}")
     os.replace(tmp, path)
@@ -60,7 +68,21 @@ def _lib(name: str) -> ctypes.CDLL:
         return _libs[name]
     lib = ctypes.CDLL(build(name))
     f32p = ctypes.POINTER(ctypes.c_float)
-    if name == "marching":
+    if name == "greedy":
+        f64p = ctypes.POINTER(ctypes.c_double)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.greedy_propose.restype = ctypes.c_int64
+        lib.greedy_propose.argtypes = [
+            f64p, f64p,                                # d (mutated), rawd
+            ctypes.c_int64, ctypes.c_int64,            # ilen, jlen
+            ctypes.c_double, ctypes.c_int64,           # thresh, nms
+            ctypes.c_int64, ctypes.c_int64,            # es_len0, max_factors
+            ctypes.c_int32, ctypes.c_int64,            # loop, n_neigh
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # t_*_loop/start/end
+            i32p, i32p, ctypes.c_int64,                # out_i, out_j, out_cap
+            ctypes.POINTER(ctypes.c_int64),            # n_accepts_out
+        ]
+    elif name == "marching":
         lib.mc_run.restype = ctypes.POINTER(_Mesh)
         lib.mc_run.argtypes = [f32p, ctypes.c_int64, ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_float]
@@ -80,6 +102,48 @@ def _lib(name: str) -> ctypes.CDLL:
         ]
     _libs[name] = lib
     return lib
+
+
+def greedy_propose(d: np.ndarray, rawd: np.ndarray, thresh: float,
+                   nms: int, es_len0: int, max_factors: int, loop: bool,
+                   n_neigh: int, t_start_loop: int, t_start: int,
+                   t_end: int):
+    """Run the greedy NMS proposal scan over the candidate matrix ``d``
+    ([ilen, jlen] float64, C-contiguous), which the scan mutates by
+    suppression as ``utils.greedy.greedy_nms_scan`` does.  ``rawd`` is the
+    unmasked distance matrix that the loop vote reads; ``es_len0`` the
+    number of edges already proposed (capacity accounting).  Returns
+    (pairs [N, 2] int32 of global (i, j) edges to append, the number of
+    loop candidates accepted)."""
+    if d.dtype != np.float64 or not d.flags.c_contiguous or d.ndim != 2:
+        # the scan writes to d through a raw double*
+        raise ValueError("greedy_propose needs a C-contiguous float64 "
+                         f"matrix, got {d.dtype} {d.shape} "
+                         f"(contiguous={d.flags.c_contiguous})")
+    ilen, jlen = d.shape
+    rawd = np.ascontiguousarray(rawd, np.float64) if loop else d
+    if rawd.shape != d.shape:
+        raise ValueError(f"greedy_propose: rawd {rawd.shape} is not "
+                         f"d's {d.shape}")
+    # one accept appends at most (2 n_neigh + 1)^2 pairs (loop) or 2
+    # (dense), and the scan stops once the count exceeds max_factors, so
+    # the last accept overshoots by at most one batch
+    batch = (2 * n_neigh + 1) ** 2 if loop else 2
+    cap = max(int(max_factors) - int(es_len0), 0) + batch + 8
+    out_i = np.empty(cap, np.int32)
+    out_j = np.empty(cap, np.int32)
+    n_acc = ctypes.c_int64(0)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    n = _lib("greedy").greedy_propose(
+        d.ctypes.data_as(f64p), rawd.ctypes.data_as(f64p), ilen, jlen,
+        float(thresh), int(nms), int(es_len0), int(max_factors),
+        int(bool(loop)), int(n_neigh), int(t_start_loop), int(t_start),
+        int(t_end), out_i.ctypes.data_as(i32p), out_j.ctypes.data_as(i32p),
+        cap, ctypes.byref(n_acc))
+    if n < 0:
+        raise RuntimeError("greedy_propose: output buffer overflow")
+    return np.stack([out_i[:n], out_j[:n]], axis=1), int(n_acc.value)
 
 
 def marching_cubes(grid: np.ndarray, iso: float = 0.0):

@@ -167,10 +167,22 @@ def build_edge_system(poses, disps, intrinsics, target, weight, ii, jj,
     work), CPU tensors take the plain version.  On CUDA the call only
     checks, allocates and launches: it copies nothing from the host and
     reads nothing from the device, so it never synchronizes and can be
-    captured in a CUDA graph."""
+    captured in a CUDA graph.
+
+    The kernel has no backward: its outputs are written through a raw
+    pointer, so autograd would take them for constants and every
+    gradient through BA would be zero.  A call that would launch it on
+    inputs that require grad raises; differentiable callers ask ``ba``
+    for ``fused=False``, the plain version."""
     if disps.device.type == "cpu":
         return build_edge_system_plain(poses, disps, intrinsics, target,
                                        weight, ii, jj, valid)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (poses, disps, intrinsics, target,
+                                      weight)):
+        raise ValueError("edge system: the kernel has no backward and its "
+                         "inputs require grad; call dba.ba(..., "
+                         "fused=False) to differentiate through BA")
     E, hw = check_edge_args(poses, disps, intrinsics, target, weight, ii,
                             jj, valid)
     sizes = (E * 144, E * 12, E * 6 * hw, E * 6 * hw, E * hw, E * hw)
@@ -466,14 +478,18 @@ def _cg_solve(rhs, Hblocks, Ei, Eij_m, Q, ii, jj, pm_f, lm: float,
 def ba(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
        valid, t0: int, t1: int, iters: int = 2, lm: float = 1e-4,
        ep: float = 0.1, motion_only: bool = False, max_deg: int = 24,
-       solver: str = "chol", cg_iters: int = 64):
+       solver: str = "chol", cg_iters: int = 64,
+       fused: bool | None = None):
     """Run `iters` Gauss-Newton steps of dense bundle adjustment.
 
     poses [P, 7]; disps/disps_sens/eta [P, ht, wd]; target/weight
     [E, ht, wd, 2]; ii/jj [E] window-local; valid [E] bool.  Poses in
     [t0, t1) are optimized.  ``solver`` is "chol" (dense damped Cholesky)
     or "cg" (matrix-free PCG, at most ``cg_iters`` iterations per
-    Gauss-Newton step).  Returns (poses, disps).
+    Gauss-Newton step).  ``fused`` picks the edge system: None the
+    device's (``build_edge_system``: the kernel on CUDA, the plain version
+    on the CPU), False the plain version on every device, which autograd
+    differentiates (the trainer's choice).  Returns (poses, disps).
 
     The per-source edge degree must fit the table capacity max_deg: it is
     checked here on the host (callers bucket max_deg from the true
@@ -482,6 +498,8 @@ def ba(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
     """
     if solver not in ("chol", "cg"):
         raise ValueError(f"solver must be 'chol' or 'cg', got {solver!r}")
+    if fused not in (None, False):
+        raise ValueError(f"fused must be None or False, got {fused!r}")
     if bool(valid.any()):
         deg = int(torch.bincount(ii[valid]).max())
         if deg > max_deg:
@@ -491,7 +509,7 @@ def ba(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
                 f"(utils.shapes.bucket) before calling ba()")
     return _ba_impl(poses, disps, intrinsics, disps_sens, target, weight,
                     eta, ii, jj, valid, t0, t1, iters, lm, ep, motion_only,
-                    max_deg, solver, cg_iters)
+                    max_deg, solver, cg_iters, fused)
 
 
 def _dense_solve(rhs, L, pm_f, lm: float, ep: float):
@@ -507,7 +525,7 @@ def _dense_solve(rhs, L, pm_f, lm: float, ep: float):
 
 def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
              jj, valid, t0, t1, iters, lm, ep, motion_only, max_deg,
-             solver="chol", cg_iters=64):
+             solver="chol", cg_iters=64, fused=None):
     """The Gauss-Newton loop of ``ba`` without the host degree check."""
     P = poses.shape[0]
     ht, wd = disps.shape[-2:]
@@ -571,10 +589,12 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
                      (-Spp * okrc[..., None, None]).reshape(-1))
         return L
 
+    edge_system = build_edge_system_plain if fused is False \
+        else build_edge_system
     dx = None       # the PCG warm start: the previous step's solution
     for _ in range(iters):
-        sys = build_edge_system(poses, disps, intrinsics, target, weight,
-                                ii, jj, valid)
+        sys = edge_system(poses, disps, intrinsics, target, weight, ii, jj,
+                          valid)
         Hii = sys.H[:, :6, :6] * gi[:, None, None]
         Hij = sys.H[:, :6, 6:] * (gi * gj)[:, None, None]
         Hji = sys.H[:, 6:, :6] * (gj * gi)[:, None, None]

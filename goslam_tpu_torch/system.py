@@ -85,22 +85,22 @@ class SLAMSystem:
         if self.mode != "rgbd":
             raise NotImplementedError(
                 f"mode {self.mode!r} is not ported yet (ROADMAP.md, queue "
-                f"A item 5); the port tracks RGB-D")
+                f"A, A5); the port tracks RGB-D")
         if self.cfg.get("make_video", False):
             raise NotImplementedError(
                 "make_video (meshes after every mapping round, "
-                "tools/meshvideo.py) is not ported yet (ROADMAP.md, queue A "
-                "item 6)")
+                "tools/meshvideo.py) is not ported yet (ROADMAP.md, queue A, "
+                "A6)")
         if self.cfg.get("viz", False):
             raise NotImplementedError(
-                "the live viewer is not ported yet (ROADMAP.md, queue A "
-                "item 6)")
+                "the live viewer is not ported yet (ROADMAP.md, queue A, "
+                "A6)")
         if (not self.only_tracking and self.cfg.get("multichip", True)
                 and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError(
                 "ray-sharded mapping over several GPUs is not ported yet "
-                "(ROADMAP.md, queue A item 3); set multichip: False to map "
+                "(ROADMAP.md, queue A, A3); set multichip: False to map "
                 "on one GPU")
         self.output = output or self.cfg["data"].get("output", "") or "output"
         os.makedirs(self.output, exist_ok=True)

@@ -1,8 +1,9 @@
 """Backend: global dense bundle adjustment and loop closing.
 
 Builds an edge set over [t_start, t_end) from the flow-distance matrix
-(computed on the device; the greedy NMS selection runs on the host; in
-loop mode a candidate must also pass a neighbourhood-consistency vote),
+(computed on the device; the greedy NMS selection runs on the host in
+native code, ``native/greedy.cpp``; in loop mode a candidate must also
+pass a neighbourhood-consistency vote),
 then runs the low-memory update (alt-corr + edge-chunked GRU + full DBA)
 over it.
 """
@@ -11,12 +12,50 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.greedy import greedy_nms_scan
 from .factor_graph import FactorGraph, resolve_dtype
 from .video import VideoBuffer
 
 # half-width of the neighbourhood that votes on a loop candidate
 LOOP_VOTE_NEIGH = 1
+
+
+def propose_scan_plain(d, rawd, thresh, nms, es_len0, max_factors, loop,
+                       n_neigh, t_start_loop, t_start, t_end):
+    """Plain version of ``native.greedy_propose`` (the scan that
+    ``Backend._propose_edges`` runs), with its arguments and results: the
+    Python scan of ``utils.greedy`` over ``d`` (mutated), accepting a
+    candidate while the edges number at most ``max_factors``; in loop mode
+    only when more than half of its (2 n_neigh + 1)^2 neighbourhood lies
+    under ``thresh`` in ``rawd``, and then with all of those neighbours.
+    Returns (pairs [N, 2], the number of loop candidates accepted)."""
+    pairs, n_acc = [], 0
+
+    def accept(di, dj):
+        nonlocal n_acc
+        if es_len0 + len(pairs) > max_factors:
+            return False
+        i, j = di + t_start_loop, dj + t_start
+        if not loop:
+            pairs.extend([(i, j), (j, i)])
+            return True
+        sub, votes = [], 0
+        for si in range(max(i - n_neigh, t_start_loop),
+                        min(i + n_neigh + 1, t_end)):
+            for sj in range(max(j - n_neigh, t_start),
+                            min(j + n_neigh + 1, t_end)):
+                if rawd[si - t_start_loop, sj - t_start] <= thresh:
+                    votes += 1
+                    if si != sj:
+                        sub.append((si, sj))
+        if votes > (2 * n_neigh + 1) ** 2 // 2:
+            pairs.extend(sub)
+            n_acc += 1
+        return True
+
+    greedy_nms_scan(d, thresh, nms, accept)
+    return np.asarray(pairs, np.int32).reshape(-1, 2), n_acc
 
 
 class Backend:
@@ -48,7 +87,9 @@ class Backend:
         [t_start_loop, t_end), columns [t_start, t_end).  In loop mode a
         candidate is accepted only when more than half of its 3x3
         neighbourhood lies under `thresh` in the unmasked distances, and
-        then brings all of those neighbours as edges."""
+        then brings all of those neighbours as edges.  The scan is
+        ``native.greedy_propose``; a failed build of it raises (its plain
+        version ``propose_scan_plain`` is the tests' reference)."""
         ilen = t_end - t_start_loop
         jlen = t_end - t_start
         ii0, jj0 = np.meshgrid(np.arange(t_start_loop, t_end),
@@ -70,30 +111,12 @@ class Backend:
                 d[max(0, di - nms):di + nms + 1,
                   max(0, dj - nms):dj + nms + 1] = np.inf
 
-        n = LOOP_VOTE_NEIGH
-
-        def accept(di, dj):
-            if len(es) > max_factors:
-                return False
-            i, j = di + t_start_loop, dj + t_start
-            if not loop:
-                es.append((i, j))
-                es.append((j, i))
-                return True
-            sub, votes = [], 0
-            for si in range(max(i - n, t_start_loop), min(i + n + 1, t_end)):
-                for sj in range(max(j - n, t_start), min(j + n + 1, t_end)):
-                    if rawd[si - t_start_loop, sj - t_start] <= thresh:
-                        votes += 1
-                        if si != sj:
-                            sub.append((si, sj))
-            if votes > (2 * n + 1) ** 2 // 2:
-                es.extend(sub)
-                self.last_loop_accepts += 1
-                self.total_loop_accepts += 1
-            return True
-
-        greedy_nms_scan(d, thresh, nms, accept)
+        pairs, n_acc = native.greedy_propose(
+            d, rawd, thresh, nms, len(es), max_factors, loop,
+            LOOP_VOTE_NEIGH, t_start_loop, t_start, t_end)
+        es.extend((int(i), int(j)) for i, j in pairs)
+        self.last_loop_accepts += n_acc
+        self.total_loop_accepts += n_acc
         return es
 
     def ba(self, t_start, t_end, steps, graph: FactorGraph, nms, radius,

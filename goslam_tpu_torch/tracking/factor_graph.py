@@ -302,6 +302,7 @@ class FactorGraph:
     # ------------------------------------------------------------------
     # the update step (frontend, trajectory filler)
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def update(self, t0: Optional[int] = None, t1: Optional[int] = None,
                iters: int = 2, use_inactive: bool = False,
                motion_only: bool = False, ba_lm: float = 1e-4,
@@ -393,6 +394,7 @@ class FactorGraph:
     # ------------------------------------------------------------------
     # low-memory update for global BA
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def update_lowmem(self, t0=None, t1=None, iters=2, steps=8, max_t=None,
                       ba_type="dense", motion_only=False):
         """steps x (edge-chunked alt-corr GRU + full-window BA)."""

@@ -9,11 +9,16 @@ Runs the JAX package's SLAMSystem over map-128's configuration
 keyframes, meshing at resolution 96 evaluated against
 ``Synthetic.gt_mesh()``) and prints one JSON line: the ATE, the mapper
 rounds and train steps, the mesh metrics and the vertex and triangle
-counts of the raw and culled meshes.  The mapper's seed is the JAX
+counts of the raw and culled meshes, and the learnt-map ratio of
+``chip_smoke.py``'s ``mesh checks`` line: the trained map's median |SDF|
+at the keyframes' observed points (the multiview filter's depth,
+unprojected) over that of the same mapper's initial, untrained
+parameters.  The mapper's seed is the JAX
 package's default (0) unless ``--seed`` names another (its random
 draws: the initial parameters, the ray keys, the jitter, the frame
 schedule).  ``chip_smoke.py`` gates the port's mesh metrics on the
-range of these numbers over seeds 0-6.
+range of these numbers over seeds 0-6, and sets ``MAP_LEARNT_RATIO``
+from the range of the ratio.
 """
 import argparse
 import json
@@ -33,11 +38,15 @@ def main():
     args = parser.parse_args()
 
     import jax
+    import jax.numpy as jnp
+    import numpy as np
 
     from chip_smoke import CKPT, map_config
     from goslam_tpu.data.synthetic import Synthetic
     from goslam_tpu.mapping import mesher as M
+    from goslam_tpu.mapping.instant_neus import InstantNeuS
     from goslam_tpu.mapping.mapper import Mapper
+    from goslam_tpu.ops import projective
     from goslam_tpu.system import SLAMSystem, load_pretrained
 
     cfg = map_config()
@@ -50,6 +59,7 @@ def main():
     slam = SLAMSystem(cfg, params=load_pretrained(CKPT), output=args.out)
     if args.seed:
         slam.mapper = Mapper(slam.video, cfg, seed=args.seed)
+    untrained = slam.mapper.params
     # count the mapper rounds (an instance attribute would not shadow
     # __call__, so the class's is wrapped)
     rounds = []
@@ -75,6 +85,24 @@ def main():
                                            "final_raw.ply"))
     cull_v, cull_t = M.load_ply(os.path.join(args.out, "mesh",
                                              "cull_mesh.ply"))
+
+    # the learnt-map ratio, as chip_smoke.mesh_checks reads it
+    v = slam.video
+    n = v.filtered_id
+    observed = np.asarray(projective.iproj_world(
+        v.poses_filtered[:n], jnp.maximum(v.disps_filtered[:n], 1e-6),
+        v.intrinsics * v.device_scale))[np.asarray(v.mask_filtered[:n]) > 0]
+    bnd = jnp.asarray(v.bound, jnp.float32)
+
+    def sdf_at_observed(params):
+        sdf = slam.mapper.model.apply({"params": params}, jnp.asarray(
+            observed), bnd, bnd, method=InstantNeuS.sdf_grid)
+        return float(np.median(np.abs(np.asarray(sdf))))
+
+    fit = {"points": len(observed),
+           "trained": sdf_at_observed(slam.mapper.params),
+           "untrained": sdf_at_observed(untrained)}
+    fit["ratio"] = fit["trained"] / fit["untrained"]
     print(json.dumps({
         "device": str(jax.devices()[0].platform), "seed": args.seed,
         "keyframes": slam.video.counter,
@@ -85,6 +113,7 @@ def main():
         "mesh": metrics.get("mesh"),
         "raw_mesh": [len(raw_v), len(raw_t)],
         "culled_mesh": [len(cull_v), len(cull_t)],
+        "sdf_at_observed": fit,
         "seconds": time.time() - t0,
     }))
 

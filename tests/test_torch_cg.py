@@ -7,8 +7,9 @@ against the JAX package, on the CPU.
   * ``dba.ba(solver="cg")`` vs the JAX package's, with the numbers of PCG
     iterations compared, and vs the port's own Cholesky path;
   * ``_inv6`` and ``_pcg`` on singular and non-finite systems;
-  * ``Backend._propose_edges(loop=True)`` vs the JAX package's Python and
-    native scans;
+  * ``Backend._propose_edges`` (the port's native scan, and its plain
+    version ``propose_scan_plain`` in its place) vs the JAX package's
+    Python and native scans; a failed build of the native scan raises;
   * ``FactorGraph.update_lowmem`` over 130 keyframes, where the window
     reaches 192 poses and the solver is PCG, in both packages.
 
@@ -31,7 +32,9 @@ from goslam_tpu.ops import dba as jdba
 from goslam_tpu.ops import lie as jlie
 from goslam_tpu.ops import projective as jproj
 from goslam_tpu.tracking.backend import Backend as JBackend
+from goslam_tpu_torch import native
 from goslam_tpu_torch.ops import dba
+from goslam_tpu_torch.tracking import backend
 from goslam_tpu_torch.tracking.backend import Backend
 
 
@@ -438,18 +441,24 @@ def _backends(dist):
     return be, jbe
 
 
-@pytest.mark.parametrize("impl", ["native", "python"])
+@pytest.mark.parametrize("impl", ["native", "python", "port_plain"])
 @pytest.mark.parametrize("seed,loop", [(0, True), (1, True), (2, True),
                                        (3, False)])
 def test_propose_edges_matches_jax(monkeypatch, seed, loop, impl):
     """The same distance matrix through both packages: the same edge list
-    in the same order and the same number of accepted loop candidates,
-    with the JAX package's Python scan and with its native one.  The
-    seeded matrix has a band of near revisits (frame k sees frame k - 30)
-    so that the neighbourhood vote passes for some candidates and fails
-    for others."""
+    in the same order and the same number of accepted loop candidates.
+    The port runs its native scan against the JAX package's native scan
+    ("native") and its Python scan ("python"); "port_plain" runs the
+    port's plain scan ``propose_scan_plain`` in place of its native one,
+    against the JAX package's native scan.  The seeded matrix has a band
+    of near revisits (frame k sees frame k - 30) so that the
+    neighbourhood vote passes for some candidates and fails for
+    others."""
     monkeypatch.setenv("GOSLAM_NATIVE_GREEDY",
-                       "1" if impl == "native" else "0")
+                       "0" if impl == "python" else "1")
+    if impl == "port_plain":
+        monkeypatch.setattr(native, "greedy_propose",
+                            backend.propose_scan_plain)
     rng = np.random.default_rng(seed)
     n = 48
     dist = 10.0 + 30.0 * rng.random((n, n))
@@ -472,3 +481,14 @@ def test_propose_edges_matches_jax(monkeypatch, seed, loop, impl):
     if loop:
         assert be.total_loop_accepts > 0
         assert any(abs(a - b) > 20 for a, b in got)
+
+
+def test_native_scan_build_failure_raises(monkeypatch, tmp_path):
+    """The port has no fallback to the Python scan: when the native scan
+    cannot be built, edge proposal raises."""
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    be, _ = _backends(np.full((8, 8), 1.0))
+    with pytest.raises(RuntimeError, match="building greedy.cpp failed"):
+        be._propose_edges(0, 8, 0, 1, 1, 5.0, 20, False, [])

@@ -6,10 +6,13 @@ multiview filter and a mapper round every 4 keyframes, one final round,
 meshing at resolution 64) with the in-tree checkpoint, then
 ``terminate`` with the room's GT mesh.  Tracking is
 tests/test_torch_slice.py's (12 frames, fp32 frontend, upsampled
-disparities, global BA every 4 keyframes): without upsampling and global
-BA the two packages' 14-frame trajectories sit 1-2 cm apart.  The JAX
-package runs in a process of its own (tests/jax_subprocess.py).  Mesh
-evaluation samples 20,000 points.
+disparities, global BA every 4 keyframes).  With demo_cfg's own
+tracking the two packages' filled trajectories sit centimetres apart:
+their frontends agree given the same bf16 keyframe features, and the
+chaos is in ``terminate``, where the JAX package's own trajectory moves
+by 6.8 cm between two processes (tests/test_torch_demo_tracking.py).  The
+JAX package runs in a process of its own (tests/jax_subprocess.py).
+Mesh evaluation samples 20,000 points.
 
 The mapper's device draws differ between the packages, so the trained
 maps do too.  The RNG-free end-to-end parity: the JAX run's trained

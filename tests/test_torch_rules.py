@@ -2,8 +2,9 @@
 
   * Import rule: ``goslam_tpu_torch``, every one of its modules and
     ``chip_smoke.py`` import neither JAX nor anything of ``goslam_tpu``.
-  * Device rule: the entry points run on the GPU unless the caller asks
-    for the CPU, and raise when no GPU is visible and none was asked for.
+  * Device rule: the entry points (the system, ``run`` and the trainer)
+    run on the GPU unless the caller asks for the CPU, and raise when no
+    GPU is visible and none was asked for.
   * The command-line entry point runs end to end on the CPU when asked
     to, and writes the trajectory files (and, with mapping, the meshes
     and their metrics).
@@ -75,6 +76,17 @@ def test_run_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main([cfg, "--only_tracking", "--output", str(tmp_path),
                   "--max_frames", "2"])
+
+
+def test_train_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
+    from goslam_tpu_torch.train import __main__ as train_main
+    from goslam_tpu_torch.train import trainer
+    out = str(tmp_path / "droid.ckpt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main.main(["--steps", "1", "--scenes", "1", "--out", out])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.fit(trainer.TrainConfig(steps=1, n_scenes=1), out)
+    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("what", ["mono", "make_video", "viz", "multichip"])

@@ -106,7 +106,8 @@ def _code_lines(path):
     return [line for line in lines if line]
 
 
-@pytest.mark.parametrize("name", ["marching.cpp", "raster.cpp"])
+@pytest.mark.parametrize("name", ["marching.cpp", "raster.cpp",
+                                  "greedy.cpp"])
 def test_native_sources_are_the_jax_packages(name):
     """The port builds its own copies of the native helpers: the JAX
     package's sources line for line, comments aside (the copies' comments
