@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # also timed and traced runs of three paths
     python3 chip_smoke.py --paths loop-160    # only some of the paths
     python3 chip_smoke.py --memory     # name what holds memory between paths
+    python3 chip_smoke.py --pcg-budget 128   # loop-160 again at that budget
 
 Phases, each of which exits non-zero on failure (nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -20,15 +21,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      alt_corr at pixel counts that are no multiple of its 64-pixel tile
      and at adversarial coordinates (NaN, +-1e6, tiles whose windows all
      miss the image, windows at the image border, windows over the whole
-     frame), schur_matvec with frames of degree 0, a hub frame that 40
+     frame) and over a stereo rig's pyramid (kind "stereo": 2 maps a
+     frame, self-edges reading the right view), schur_matvec with frames of degree 0, a hub frame that 40
      edges point into, a hub frame that 60 edges leave, and hw = 100;
      fail on register spills in any kernel; and hold dba.ba with the PCG
      solver (whose matvec is the schur_matvec kernel) against the
      Cholesky solver on a band graph of 192 poses;
-  3. the paths, each RGB-D on the synthetic scene with
-     checkpoints/droid_synthetic.ckpt, through SLAMSystem.track /
-     terminate, with the kernels' launch counts reset just before the run
-     and read just after, and the shapes of every launch recorded:
+  3. the paths, each on the synthetic scene with
+     checkpoints/droid_synthetic.ckpt, RGB-D but for mono-128 and
+     stereo-128, through SLAMSystem.track / terminate, with the kernels'
+     launch counts reset just before the run and read just after, and
+     the shapes of every launch recorded:
        accuracy-128  40 frames at 128x192, tracking only.  Gates: every
                      pose finite, ATE < 0.18 m, edge_system and alt_corr
                      launched;
@@ -61,6 +64,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                      candidate accepted, ATE < LOOP_ATE_GATE;
        loop-160-off  loop-160 without loop closing (reported beside it);
        loop-160-240  loop-160 at 240x320 (finite, all kernels launched);
+       mono-128      accuracy-128 in mode mono: no depth.  Gates: every
+                     pose finite, ATE < 1.5x the smallest of the JAX
+                     package's readings on a CPU (JAX_MODE_128_CPU,
+                     scripts/mode_reference_jax.py), edge_system and
+                     alt_corr launched;
+       stereo-128    accuracy-128 in mode stereo: no depth, each frame
+                     [left, right], the right view rendered
+                     STEREO_BASELINE_M along the camera's x axis
+                     (stereo_right), the baseline of the port's stereo
+                     self-edges.  Gates: as mono-128's, and stereo
+                     self-edges (ii == jj) in the frontend's graph and in
+                     global BA's;
        train-128     the DroidNet trainer (trainer.fit, the flags'
                      defaults of python -m goslam_tpu_torch.train: 128x192
                      with 240x320 mixed in, eight unrolled update and BA
@@ -85,7 +100,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      whole wrapper, captured in the graph, which fails if it
      synchronizes), the uncaptured wrapper's and the plain version's time,
      and the bound (the least time the card could take for the same work)
-     from this run's inputs.
+     from this run's inputs; for stereo-128's shapes also edge_system
+     with self-edges among the edges and alt_corr of kind "stereo".
+     With --pcg-budget N, loop-160 once more with N PCG iterations per
+     Gauss-Newton step, beside the default 32.
 
 The second line from the end is a JSON object listing the kernels, the
 line before it the card's name and power limit; the last line is
@@ -95,6 +113,7 @@ without printing a result when there is none.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import gc
 import json
@@ -184,6 +203,19 @@ TRAIN_STEPS = 16
 TRAIN_LOSS_TOL = 2e-3
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_ZERO_GRAD_TOL = 1e-5
+# ATE RMSE (m), Sim3 scale and keyframes of the JAX package on the
+# mono-128 and stereo-128 paths, on a CPU, in three processes
+# (scripts/mode_reference_jax.py; the readings move between processes);
+# each path's gate is MODE_ATE_FACTOR times its smallest ATE
+JAX_MODE_128_CPU = {
+    "mono": ((0.22437292544334092, 0.48065281323391085, 40),
+             (0.22763376249523992, 0.5041129640884393, 40),
+             (0.2249149348257725, 0.48074705449278865, 40)),
+    "stereo": ((0.23251974955226906, 0.4754349490659564, 40),
+               (0.2269364575009061, 0.4765176749042419, 40),
+               (0.23251974955226906, 0.4754349490659564, 40)),
+}
+MODE_ATE_FACTOR = 1.5
 # gate of loop-160: about 1.5x the ATE the port measured on an H100
 # (0.37-0.39 m over four runs; 0.48 m without loop closing)
 LOOP_ATE_GATE = 0.58
@@ -427,13 +459,25 @@ def alt_corr_coords(gen, kind: str, E: int, ht8: int, wd8: int):
 
 
 def check_alt_corr(gen, E, T, ht8, wd8, timing: bool, kind: str = "flow"):
+    """alt_corr against its plain version over a pyramid of T maps.
+    kind "stereo" is the stereo paths' rig-flattened pyramid: map 2k is
+    frame k's left view and 2k + 1 its right; edges read left views, and
+    a quarter of them are self-edges, which read the right view of their
+    own frame (2i, 2i + 1); lookups as "flow"."""
     from goslam_tpu_torch.ops import corr, kernels
     dev = "cuda"
     fmaps = torch.randn((T, ht8, wd8, 128), generator=gen).to(dev)
     levels = corr.build_feature_pyramid(fmaps)
-    ii = torch.randint(0, T, (E,), generator=gen).to(dev)
-    jj = torch.randint(0, T, (E,), generator=gen).to(dev)
-    coords = alt_corr_coords(gen, kind, E, ht8, wd8).to(dev)
+    if kind == "stereo":
+        ii = 2 * torch.randint(0, T // 2, (E,), generator=gen)
+        jj = 2 * torch.randint(0, T // 2, (E,), generator=gen)
+        jj[::4] = ii[::4] + 1
+        ii, jj = ii.to(dev), jj.to(dev)
+    else:
+        ii = torch.randint(0, T, (E,), generator=gen).to(dev)
+        jj = torch.randint(0, T, (E,), generator=gen).to(dev)
+    coords = alt_corr_coords(gen, "flow" if kind == "stereo" else kind, E,
+                             ht8, wd8).to(dev)
     out = corr.alt_corr(levels, coords, ii, jj)
     ref = corr.alt_corr_plain(levels, coords, ii, jj)
     torch.cuda.synchronize()
@@ -669,6 +713,48 @@ def loop_config(ht: int, wd: int, enable_loop: bool = True):
     })
 
 
+# the stereo rig of stereo-128: the right camera STEREO_BASELINE_M along
+# the left camera's own x axis, the fixed baseline that ops/projective.py
+# gives an edge with ii == jj (a point at x in the left camera's frame
+# lies at x - 0.1 in the right camera's)
+STEREO_BASELINE_M = 0.1
+
+
+def mode_config(mode: str, ht: int = 128, wd: int = 192):
+    """mono-128 / stereo-128: accuracy-128's configuration in mode `mode`
+    ("mono" or "stereo"), tracked without depth."""
+    from goslam_tpu_torch.config import update_recursive
+    return update_recursive(accuracy_config(ht, wd), {"mode": mode})
+
+
+def stereo_right(ds):
+    """The right view of a Synthetic sequence (the port's or the JAX
+    package's: both render frame k from ``ds.poses[k]``): a copy whose
+    every camera is moved STEREO_BASELINE_M along its own x axis, c2w @
+    T(+b x).  Not a feature of the dataset: the stereo paths' rig."""
+    shift = np.eye(4, dtype=np.float32)
+    shift[0, 3] = STEREO_BASELINE_M
+    right = copy.copy(ds)
+    right.poses = [p @ shift for p in ds.poses]
+    return right
+
+
+def mode_frames(cfg, ds):
+    """The frames a path feeds SLAMSystem.track, one (image [rig, ht, wd,
+    3], depth or None, intrinsics, gt c2w) per frame of the Synthetic
+    sequence `ds`: rgbd keeps the depth, mono drops it, stereo also
+    drops it and stacks [left, right] (stereo_right)."""
+    mode = cfg["mode"]
+    right = stereo_right(ds) if mode == "stereo" else None
+    frames = []
+    for i in range(len(ds)):
+        _, img, depth, intr, gt = ds[i]
+        if right is not None:
+            img = np.concatenate([img, right[i][1]])
+        frames.append((img, depth if mode == "rgbd" else None, intr, gt))
+    return frames
+
+
 # name -> (config, ATE gate or None, kernels that must have been launched,
 # fewest keyframes)
 PATHS = {
@@ -683,6 +769,11 @@ PATHS = {
                      ("edge_system", "alt_corr", "schur_matvec"), 129),
     "loop-160-240": (lambda: loop_config(240, 320), None,
                      ("edge_system", "alt_corr", "schur_matvec"), 129),
+    **{f"{mode}-128": ((lambda m=mode: mode_config(m)),
+                       MODE_ATE_FACTOR * min(
+                           r[0] for r in JAX_MODE_128_CPU[mode]),
+                       ("edge_system", "alt_corr"), 0)
+       for mode in ("mono", "stereo")},
 }
 
 
@@ -770,6 +861,36 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         k = self.kernels
         k.edge_system, k.alt_corr, k.schur_matvec = self._orig
+
+
+class SelfEdgeCounter:
+    """The most stereo self-edges (valid edges with ii == jj) a graph held
+    when it was optimized, while installed: "frontend" at each
+    FactorGraph.update (the frontend's graph; the trajectory filler's
+    has none), "global_ba" at each update_lowmem (global BA's graphs,
+    and loop closing's).  Counted on the host's edge lists."""
+
+    def __init__(self):
+        from goslam_tpu_torch.tracking.factor_graph import FactorGraph
+        self.cls = FactorGraph
+        self.most = {"frontend": 0, "global_ba": 0}
+
+    def _wrap(self, fn, kind):
+        def counted(graph, *a, **k):
+            n = int((graph.valid & (graph.ii == graph.jj)).sum())
+            self.most[kind] = max(self.most[kind], n)
+            return fn(graph, *a, **k)
+        return counted
+
+    def __enter__(self):
+        c = self.cls
+        self._orig = (c.update, c.update_lowmem)
+        c.update = self._wrap(c.update, "frontend")
+        c.update_lowmem = self._wrap(c.update_lowmem, "global_ba")
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update, self.cls.update_lowmem = self._orig
 
 
 def sync_sites(fn):
@@ -1098,7 +1219,7 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     ht, wd = cfg["cam"]["H_out"], cfg["cam"]["W_out"]
     mapping = not cfg["only_tracking"]
     ds = Synthetic(cfg)
-    frames = [ds[i] for i in range(len(ds))]
+    frames = mode_frames(cfg, ds)
     slam = SLAMSystem(cfg, state_dict=load_checkpoint(CKPT), output=out_dir,
                       only_tracking=cfg["only_tracking"])
     gt_mesh, rounds, steps = "", [], None
@@ -1129,7 +1250,7 @@ def run_path(name: str, out_dir: str, phases: bool = False,
         slam.extract_final_mesh = recording_extract
 
     def stream():
-        for i, (_, img, depth, intr, gt) in enumerate(frames):
+        for i, (img, depth, intr, gt) in enumerate(frames):
             yield float(i), img, depth, intr, gt
 
     prof = None
@@ -1144,11 +1265,11 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     gc.collect()
     mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with ShapeRecorder() as rec:
+    with ShapeRecorder() as rec, SelfEdgeCounter() as self_edges:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i, (_, img, depth, intr, gt) in enumerate(frames):
+        for i, (img, depth, intr, gt) in enumerate(frames):
             slam.track(float(i), img, depth, intr, gt)
         torch.cuda.synchronize()
         t_track = time.perf_counter() - t0
@@ -1169,12 +1290,13 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     if est.shape != (len(frames), 4, 4):
         raise SystemExit(f"{name}: trajectory of shape {est.shape}")
     res = {
-        "path": name, "ht": ht, "wd": wd, "frames": len(frames),
-        "keyframes": n,
+        "path": name, "mode": cfg["mode"], "ht": ht, "wd": wd,
+        "frames": len(frames), "keyframes": n,
         "ate_rmse": metrics["ate"]["rmse"], "ate_scale": metrics["ate"]["scale"],
         "track_s": t_track, "total_s": t_total, "ckpt_s": sum(ckpt_s),
         "tracked_fps": len(frames) / t_track, "launches": launches,
         "loop_accepts": slam.backend.total_loop_accepts,
+        "self_edges": self_edges.most,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "mem_at_start_gb": mem_at_start / 1e9,
         "shapes": {k: sorted(v.items(), key=lambda kv: -kv[1])
@@ -1214,15 +1336,24 @@ def run_path(name: str, out_dir: str, phases: bool = False,
 
     kind = "timed " if phases else "traced " if trace else ""
     say(f"{kind}path {name}: {json.dumps(res)}")
-    ref = f" (JAX on a TPU v5e: {JAX_ATE_128} m)" \
-        if name == "accuracy-128" else ""
+    ref = ""
+    if name == "accuracy-128":
+        ref = f" (JAX on a TPU v5e: {JAX_ATE_128} m)"
+    elif cfg["mode"] in JAX_MODE_128_CPU:
+        a, sc, k = zip(*JAX_MODE_128_CPU[cfg["mode"]])
+        ref = (f" (JAX on a CPU: {min(a):.4f}-{max(a):.4f} m, scale "
+               f"{min(sc):.3f}-{max(sc):.3f}, {min(k)}-{max(k)} keyframes)")
     print(f"  {name}: {n} keyframes, ATE {res['ate_rmse']:.4f} m{ref}, scale "
           f"{res['ate_scale']:.3f}, {res['tracked_fps']:.2f} tracked "
           f"frames/s, {res['total_s']:.1f} s in all (go.ckpt "
           f"{res['ckpt_s']:.2f} s), kernels {launches}, "
-          f"loop candidates accepted {res['loop_accepts']}", flush=True)
+          f"loop candidates accepted {res['loop_accepts']}, stereo "
+          f"self-edges (most in one graph) {res['self_edges']}", flush=True)
     if gate is not None and not res["ate_rmse"] < gate:
         raise SystemExit(f"{name}: ATE {res['ate_rmse']} >= {gate}")
+    if cfg["mode"] == "stereo" and not min(self_edges.most.values()) > 0:
+        raise SystemExit(f"{name}: no stereo self-edge in the frontend's "
+                         f"or in global BA's graph: {self_edges.most}")
     if n < min_keyframes:
         raise SystemExit(f"{name}: {n} keyframes, fewer than the "
                          f"{min_keyframes} at which global BA reaches the "
@@ -1602,6 +1733,11 @@ def main(argv=None) -> int:
                         help="record the allocations' Python stacks and "
                              "name what holds the memory left allocated "
                              "after each path")
+    parser.add_argument("--pcg-budget", type=int, default=0,
+                        help="also drive loop-160 once more with this many "
+                             "PCG iterations per Gauss-Newton step "
+                             "(tracking.factor_graph.CG_ITERS, 32, for that "
+                             "run only) and print both ATEs")
     parser.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"),
                         help="directory for the trajectories and the "
                              "profile table")
@@ -1651,7 +1787,7 @@ def main(argv=None) -> int:
               check_edge_system(gen, E, h8, w8, False, kind), flush=True)
     # alt_corr at every kind of coordinates, at pixel counts that are no
     # multiple of its 64-pixel tile (96 and 300, four levels)
-    for kind in CORR_KINDS:
+    for kind in CORR_KINDS + ("stereo",):
         for E, T, h8, w8 in ((8, 4, 8, 12), (4, 6, 15, 20)):
             print("small check alt_corr:",
                   check_alt_corr(gen, E, T, h8, w8, False, kind), flush=True)
@@ -1698,6 +1834,22 @@ def main(argv=None) -> int:
         print(f"loop-160 ATE with loop closing "
               f"{runs['loop-160']['ate_rmse']:.4f} m, without "
               f"{runs['loop-160-off']['ate_rmse']:.4f} m", flush=True)
+    if args.pcg_budget:
+        from goslam_tpu_torch.tracking import factor_graph
+        default = factor_graph.CG_ITERS
+        factor_graph.CG_ITERS = args.pcg_budget
+        try:
+            budget = run_path("loop-160", os.path.join(
+                args.out, f"loop-160-pcg{args.pcg_budget}"), phases=True)
+        finally:
+            factor_graph.CG_ITERS = default
+        base = runs.get("loop-160")
+        print(f"loop-160 with a PCG budget of {args.pcg_budget}: ATE "
+              f"{budget['ate_rmse']:.5f} m, scale {budget['ate_scale']:.4f}, "
+              f"PCG {json.dumps(budget['pcg'])}; with {default}: "
+              + (f"ATE {base['ate_rmse']:.5f} m, scale "
+                 f"{base['ate_scale']:.4f}" if base else "not driven"),
+              flush=True)
     if args.profile:
         for name in ("accuracy-128", "map-128", "loop-160"):
             if name in runs:
@@ -1713,16 +1865,26 @@ def main(argv=None) -> int:
     checked = {"edge_system": {}, "alt_corr": {}, "schur_matvec": {}}
     for r in runs.values():
         h8, w8 = r["ht"] // 8, r["wd"] // 8
+        stereo = r["mode"] == "stereo"
         for (E, hw), count in r["shapes"]["edge_system"]:
             if (hw, E) not in checked["edge_system"]:
                 res = check_edge_system(gen, E, h8, w8, True)
                 checked["edge_system"][(hw, E)] = res
                 say(f"edge_system {json.dumps(res)}")
+            if stereo:
+                # and with stereo self-edges among the edges, as this
+                # path gives them
+                say(f"edge_system {r['path']} " + json.dumps(
+                    check_edge_system(gen, E, h8, w8, False, "stereo")))
         for (E, T, hw), count in r["shapes"]["alt_corr"]:
             if (hw, E, T) not in checked["alt_corr"]:
                 res = check_alt_corr(gen, E, T, h8, w8, True)
                 checked["alt_corr"][(hw, E, T)] = res
                 say(f"alt_corr {json.dumps(res)}")
+            if stereo:
+                # over the rig-flattened pyramid of T = 2 x frames maps
+                say(f"alt_corr {r['path']} " + json.dumps(
+                    check_alt_corr(gen, E, T, h8, w8, False, "stereo")))
         for (P, E, hw), n_valid in r["schur_valid"]:
             if (hw, P, E) not in checked["schur_matvec"]:
                 res = check_schur_matvec(gen, P, E, hw, n_valid, True)
@@ -1770,6 +1932,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "path": path, "shape": list(shape),
             "launches": run["launches"][name],
+            "launches_by_path": {
+                **{p: r["launches"][name] for p, r in runs.items()},
+                TRAIN_PATH: train["launches"][name]},
             "max_abs_err": max(c["max_abs_err"]
                                for c in checked[name].values()),
             "ms": res["ms"], "wrapper_ms": res["wrapper_ms"],

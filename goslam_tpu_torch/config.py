@@ -141,3 +141,10 @@ def load_config(path: Optional[str] = None,
         update_recursive(cfg, c)
     return cfg
 
+
+def save_config(cfg: dict, path: str):
+    """Write `cfg` as YAML (``load_config`` reads it back)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.dump(cfg, f)

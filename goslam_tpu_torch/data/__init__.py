@@ -1,0 +1,1 @@
+from .datasets import get_dataset  # noqa: F401

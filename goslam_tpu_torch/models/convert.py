@@ -7,7 +7,8 @@ together with the training config (``checkpoints/droid_synthetic.ckpt``).
 own torch names and OIHW kernels, so a torch ``droid.pth`` state dict
 loads into the same modules unchanged; ``state_dict_to_flax`` is its
 inverse, with which the port's trainer writes the JAX trainer's
-checkpoint format.  Unpickling needs numpy alone.
+checkpoint format.  Unpickling needs numpy alone.  A DROID-SLAM
+``droid.pth`` goes through ``convert_torch_state_dict``.
 """
 from __future__ import annotations
 
@@ -136,9 +137,36 @@ def is_flax_tree(params: Mapping) -> bool:
     return any(isinstance(v, Mapping) for v in params.values())
 
 
+def convert_torch_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A DROID-SLAM state dict (``droid.pth``: DROID's module names,
+    perhaps under ``module.``) -> the port's state dict.  The names are
+    the port's own; the delta and weight heads keep their first two
+    output channels, as the reference does when it loads droid.pth, and
+    entries the port's DroidNet has no use for are dropped (a missing one
+    fails in ``load_state_dict``).  ``weight_calib`` is 1 unless given."""
+    from .droidnet import DroidNet
+
+    sd = {k.replace("module.", ""): torch.as_tensor(v).float()
+          for k, v in sd.items()}
+    for head in ("update.weight.2", "update.delta.2"):
+        for leaf in ("weight", "bias"):
+            if f"{head}.{leaf}" in sd:
+                sd[f"{head}.{leaf}"] = sd[f"{head}.{leaf}"][:2]
+    with torch.device("meta"):
+        names = DroidNet().state_dict().keys()
+    out = {k: sd[k].clone() for k in names if k in sd}
+    out.setdefault("weight_calib", torch.tensor(1.0))
+    return out
+
+
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a trainer checkpoint (a pickle of numpy arrays) into the
-    port's state dict."""
+    """``tracking.pretrained`` -> the port's state dict: a ``.pth`` /
+    ``.pt`` file is a torch state dict in DROID's naming (the reference's
+    droid.pth), anything else a trainer checkpoint (a pickle of numpy
+    arrays)."""
+    if path.endswith((".pth", ".pt")):
+        return convert_torch_state_dict(
+            torch.load(path, map_location="cpu", weights_only=True))
     with open(path, "rb") as f:
         state = pickle.load(f)
     return flax_to_state_dict(state["params"])

@@ -1,4 +1,8 @@
-"""SLAMSystem: the RGB-D pipeline on one device, tracking and mapping.
+"""SLAMSystem: the pipeline on one device, tracking and mapping.
+
+Modes (``mode``): ``rgbd`` (images and depth), ``mono`` (images alone)
+and ``stereo`` (a rectified pair of images a frame, whose self-edges
+take the fixed baseline of ops/projective.py).
 
   per frame:     motion filter -> frontend (windowed BA; with
                  ``tracking.frontend.enable_loop`` every frontend update
@@ -7,7 +11,8 @@
   per M kfs:     multiview filter -> one mapper round
                  (``mapping.mapping_every``; not with ``only_tracking``)
   terminate:     final dense BA x2, checkpoint (go.ckpt), trajectory
-                 fill, ATE (Umeyama); with mapping, the final filter
+                 fill, ATE (Umeyama) or, without ground truth,
+                 submission.txt; with mapping, the final filter
                  pass, ``post_processing_iters`` final mapping rounds,
                  and the mesh: extracted, culled, exported and evaluated
 
@@ -82,10 +87,9 @@ class SLAMSystem:
         self.mode = self.cfg.get("mode", "mono")
         self.only_tracking = only_tracking or self.cfg.get(
             "only_tracking", False)
-        if self.mode != "rgbd":
-            raise NotImplementedError(
-                f"mode {self.mode!r} is not ported yet (ROADMAP.md, queue "
-                f"A, A5); the port tracks RGB-D")
+        if self.mode not in ("mono", "stereo", "rgbd"):
+            raise ValueError(f"mode {self.mode!r}: one of mono, stereo, "
+                             f"rgbd")
         if self.cfg.get("make_video", False):
             raise NotImplementedError(
                 "make_video (meshes after every mapping round, "
@@ -117,7 +121,7 @@ class SLAMSystem:
         self.net = net.to(self.device).eval()
 
         self.video = VideoBuffer(tr["buffer"], cam["H_out"], cam["W_out"],
-                                 self.device)
+                                 self.device, stereo=self.mode == "stereo")
         self.motion_filter = MotionFilter(self.net, self.video,
                                           thresh=tr["motion_filter"]["thresh"])
         self.backend = Backend(self.net, self.video, self.cfg)
@@ -143,12 +147,17 @@ class SLAMSystem:
     @torch.no_grad()
     def track(self, timestamp, image, depth=None, intrinsics=None,
               gt_pose=None):
-        """Feed one frame: image [1, ht, wd, 3] float in [0, 1] (or
-        uint8), depth [ht, wd] metres or None, intrinsics [4] (fx fy cx
-        cy) at full resolution, gt_pose a 4x4 c2w or None.  Returns the
-        list of admit decisions this call produced (one entry)."""
+        """Feed one frame: image [rig, ht, wd, 3] float in [0, 1] (or
+        uint8; rig 2 in stereo, [left, right], else 1), depth [ht, wd]
+        metres or None (mono and stereo), intrinsics [4] (fx fy cx cy) at
+        full resolution, gt_pose a 4x4 c2w or None.  Returns the list of
+        admit decisions this call produced (one entry)."""
         self.frame_count += 1
         img = np.asarray(image)
+        if img.ndim != 4 or img.shape[0] != self.video.rig:
+            raise ValueError(f"mode {self.mode}: image of shape "
+                             f"[{self.video.rig}, ht, wd, 3] expected, got "
+                             f"{list(img.shape)}")
         if img.dtype != np.uint8:
             img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
         img = torch.as_tensor(img, device=self.device).float() / 255.0
@@ -204,15 +213,17 @@ class SLAMSystem:
         rounds and the mesh, evaluated against the PLY at
         `eval_mesh_path` when ``meshing.eval_rec`` is on.  Writes
         est_poses.npy (c2w [N,4,4]) and, with ground truth,
-        metrics_traj.txt into the output directory; with mapping,
-        mesh/*.ply and metrics_mesh.txt."""
+        metrics_traj.txt into the output directory, without it
+        submission.txt (the TUM format, at the stream's own timestamps);
+        with mapping, mesh/*.ply and metrics_mesh.txt."""
         self.finalize_tracking()
         n = self.video.counter
         self.save_checkpoint(os.path.join(self.output, "go.ckpt"))
-        gt_record = []
+        gt_record, ts_record = [], []
         if stream is not None:
             def recording(s):
                 for item in s:
+                    ts_record.append(item[0])
                     gt_record.append(item[4])
                     yield item
 
@@ -234,6 +245,14 @@ class SLAMSystem:
             with open(os.path.join(self.output, "metrics_traj.txt"),
                       "w") as f:
                 json.dump(metrics["ate"], f, indent=2)
+        else:
+            # the images' own timestamps: a benchmark server (ETH3D) takes
+            # no other
+            ts = np.asarray(ts_record, np.float64) if ts_record else \
+                self.video.timestamp[:n].cpu().numpy().astype(np.float64)
+            evaluate.write_tum_trajectory(
+                os.path.join(self.output, "submission.txt"), ts[:len(c2w)],
+                c2w)
 
         if self.mapper is not None:
             self.multiview_filter()
@@ -378,6 +397,12 @@ class SLAMSystem:
                 f"(fmaps/nets/inps) needed to resume; re-save with "
                 f"save_checkpoint(full=True), or pass "
                 f"resume_tracking=False to load poses/params only")
+        if "fmaps" in state and n and np.shape(state["fmaps"])[1] != \
+                self.video.rig:
+            raise ValueError(
+                f"checkpoint {path} holds {np.shape(state['fmaps'])[1]} "
+                f"view(s) a keyframe; mode {self.mode!r} tracks "
+                f"{self.video.rig}")
 
         def dev(key, dtype=torch.float32):
             a = np.asarray(state[key])

@@ -82,7 +82,8 @@ class Backend:
     def _propose_edges(self, t_start, t_end, t_start_loop, radius, nms,
                        thresh, max_factors, loop, existing_es):
         """Greedy distance-sorted edge proposal: every pair within
-        `radius`, then the closest remaining pairs under `thresh`, with
+        `radius` (and in stereo, outside loop mode, every frame's
+        self-edge), then the closest remaining pairs under `thresh`, with
         NMS suppression, up to `max_factors` edges.  Rows are the frames
         [t_start_loop, t_end), columns [t_start, t_end).  In loop mode a
         candidate is accepted only when more than half of its 3x3
@@ -104,6 +105,10 @@ class Backend:
 
         es = list(existing_es)
         for i in range(t_start_loop, t_end):
+            if self.video.stereo and not loop:
+                # the stereo self-edge, and no proposal at its cell
+                es.append((i, i))
+                d[i - t_start_loop, i - t_start] = np.inf
             for j in range(max(i - radius, t_start_loop), i):
                 es.append((i, j))
                 es.append((j, i))
@@ -155,7 +160,8 @@ class Backend:
         """Full-sequence BA over keyframes [t_start, t_end).  Returns
         (number of keyframes, number of edges)."""
         n = t_end - t_start
-        max_factors = (self.backend_radius + 2) * 2 * n
+        max_factors = (int(self.video.stereo)
+                       + (self.backend_radius + 2) * 2) * n
         n_edges = self.ba(t_start, t_end, steps, self._graph(max_factors),
                           self.backend_nms, self.backend_radius,
                           self.backend_thresh, max_factors,

@@ -162,7 +162,10 @@ class FactorGraph:
         self.weight[slots] = 0.0
         self.net[slots] = v.nets[ii].to(self.cdt)
         if self.pyramid is not None:
-            levels = corr.build_pyramid(v.fmaps[ii, 0], v.fmaps[jj, 0])
+            # a stereo self-edge (ii == jj) correlates the left view with
+            # the right
+            c = (ii == jj).long() if v.stereo else torch.zeros_like(jj)
+            levels = corr.build_pyramid(v.fmaps[ii, 0], v.fmaps[jj, c])
             for p, lvl in zip(self.pyramid, levels):
                 p[slots] = lvl
 
@@ -212,7 +215,9 @@ class FactorGraph:
         ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1),
                              indexing="ij")
         ii, jj = ii.reshape(-1), jj.reshape(-1)
-        keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
+        # stereo keeps the pairs one frame apart out too
+        c = 1 if self.video.stereo else 0
+        keep = (np.abs(ii - jj) > c) & (np.abs(ii - jj) <= r)
         self.add_factors(ii[keep], jj[keep])
 
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
@@ -246,6 +251,10 @@ class FactorGraph:
 
         es = []
         for i in range(t0, t):
+            if self.video.stereo:
+                # the stereo self-edge, and no proposal at its cell
+                es.append((i, i))
+                d[i - t0, i - t1] = np.inf
             for j in range(max(i - rad, 0), i):
                 es.append((i, j))
                 es.append((j, i))
@@ -409,7 +418,10 @@ class FactorGraph:
         t = max_t if max_t is not None else self.video.counter
 
         lm, ep = (1e-4, 1e-1) if ba_type == "loop" else (1e-5, 1e-2)
-        Tb = bucket(min(t + 2, self.video.buffer))
+        # feature maps in the rig-flattened pyramid: frame k's view r is
+        # map k * rig + r
+        rig = self.video.rig
+        Tb = bucket(min((t + 2) * rig, self.video.buffer * rig))
         P = bucket(t1)
         for _ in range(steps):
             self._lowmem_step(P, Tb, t0, t1, iters, lm, ep, motion_only)
@@ -433,7 +445,14 @@ class FactorGraph:
         jj_s = self._t(np.where(valid_np, self.jj, 0))
 
         fpyr = corr.build_feature_pyramid(
-            v.fmaps[:Tb].reshape(-1, h8, w8, 128))
+            v.fmaps[:Tb // v.rig].reshape(-1, h8, w8, 128))
+        # each edge's maps in it: ii's left view, and jj's but for a
+        # stereo self-edge, which reads the right view (invalid slots read
+        # map 0, as in the JAX package)
+        ii_r, jj_r = ii_s * v.rig, jj_s
+        if v.stereo:
+            jj_r = torch.where(valid, jj_s * v.rig + (ii_s == jj_s).long(),
+                               torch.zeros_like(jj_s))
 
         C = self.chunk
         for c0 in range(0, self.cap, C):
@@ -444,7 +463,7 @@ class FactorGraph:
             coords, _ = projective.transform(v.poses, v.disps, v.intrinsics,
                                              ii_ch, jj_ch)
             motion = self._motion_features(coords, self.target[sl])
-            corr_feat = corr.alt_corr(fpyr, coords, ii_ch, jj_ch)
+            corr_feat = corr.alt_corr(fpyr, coords, ii_r[sl], jj_r[sl])
             net_c, delta_c, w_c = self.model.update(
                 self.net[sl].to(cdt), v.inps[ii_ch], corr_feat.to(cdt),
                 motion.to(cdt), dtype=cdt)

@@ -5,9 +5,12 @@ flow against the last keyframe with one update-operator iteration at zero
 flow, and admit the frame as a keyframe when the mean predicted flow
 exceeds a threshold (the first frame is always admitted).
 
-The encoders and the update iteration run in bf16 whatever
-``tracking.compute_dtype`` says, as the JAX package's filter does; the
-rolling last-keyframe state is kept in fp32.
+A frame is a rig of views (one, or left and right in stereo): the
+matching features are encoded for every view, the context and the flow
+estimate use the left view alone.  The encoders and the update
+iteration run in bf16 whatever ``tracking.compute_dtype`` says, as the
+JAX package's filter does; the rolling last-keyframe state is kept in
+fp32.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ class MotionFilter:
 
         h8, w8, dev = video.h8, video.w8, video.device
         f32 = torch.float32
-        self.fmap = torch.zeros((1, h8, w8, 128), dtype=f32, device=dev)
+        self.fmap = torch.zeros((video.rig, h8, w8, 128), dtype=f32,
+                                device=dev)
         self.net = torch.zeros((1, h8, w8, 128), dtype=f32, device=dev)
         self.inp = torch.zeros((1, h8, w8, 128), dtype=f32, device=dev)
 
@@ -52,8 +56,9 @@ class MotionFilter:
         """Process one frame; append it to the video and return True when
         it is admitted as a keyframe.
 
-        image [1, ht, wd, 3] in [0, 1] and depth [ht, wd] (or None) are
-        tensors on the video's device; intrinsics [4] at full resolution."""
+        image [rig, ht, wd, 3] in [0, 1] and depth [ht, wd] (or None, as
+        in mono and stereo) are tensors on the video's device; intrinsics
+        [4] at full resolution."""
         first = not self._seen_first
         self._seen_first = True
         x = normalize_images(image)
@@ -61,7 +66,7 @@ class MotionFilter:
         ctx_net, ctx_inp = self.model.encode_context(x[:1], self.dtype)
 
         # one update iteration at zero flow against the last keyframe
-        levels = corr.build_pyramid(self.fmap, gmap)
+        levels = corr.build_pyramid(self.fmap[:1], gmap[:1])
         h8, w8 = self.video.h8, self.video.w8
         coords0 = projective.coords_grid(h8, w8, image.device)[None]
         c = corr.lookup(levels, coords0)

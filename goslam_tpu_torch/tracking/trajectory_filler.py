@@ -50,16 +50,21 @@ class TrajectoryFiller:
                         video.poses[torch.as_tensor(t1, device=dev)],
                         torch.as_tensor(w, dtype=torch.float32, device=dev))
 
+        # the left views are encoded; in stereo every view of the rig
+        # gets the left view's features, as the JAX package's broadcast
+        # gives them (the filler's edges are never self-edges, so the
+        # right view is never read)
         imgs = torch.as_tensor(np.stack(images), dtype=torch.float32,
                                device=dev)
-        fmaps = self._encode(imgs)
+        fmaps = self._encode(imgs)[:, None].expand(
+            -1, video.rig, -1, -1, -1)
         zeros_ctx = torch.zeros((video.h8, video.w8, 128),
                                 dtype=torch.bfloat16, device=dev)
         for k in range(M):
             intr = torch.as_tensor(intrinsics[k], dtype=torch.float32,
                                    device=dev) / video.device_scale
             video.append(float(tt[k]), Gs[k], 1.0, None, intr,
-                         fmaps[k][None], zeros_ctx, zeros_ctx)
+                         fmaps[k], zeros_ctx, zeros_ctx)
 
         graph = FactorGraph(video, self.model, max_factors=2 * self.batch + 8,
                             corr_impl="volume", inac_capacity=-1)
@@ -74,7 +79,7 @@ class TrajectoryFiller:
 
     @torch.no_grad()
     def __call__(self, stream) -> np.ndarray:
-        """stream yields (timestamp, image [1,ht,wd,3], depth, intrinsics,
+        """stream yields (timestamp, image [rig,ht,wd,3], depth, intrinsics,
         gt_pose).  Returns [n_frames, 7] w2c poses for every frame."""
         poses: List[np.ndarray] = []
         ts_b, im_b, intr_b = [], [], []

@@ -6,7 +6,8 @@ for network features):
   * poses are w2c 7-vectors [tx ty tz qx qy qz qw], identity-initialized
   * disps live at 1/8 resolution, initialized to 1
   * sensor depth is subsampled at pixel centers [3::8, 3::8]
-  * fmaps carry a rig dim (1 for mono/RGB-D)
+  * fmaps carry a rig dim: 1 for mono and RGB-D, 2 for stereo (left,
+    right); images keep the left view only
   * images are kept at full resolution, float in [0, 1], for the mapper;
     the multiview filter publishes ``poses_filtered``,
     ``disps_filtered`` and ``mask_filtered`` up to ``filtered_id``, the
@@ -29,13 +30,13 @@ _DISTANCE_CHUNK = 4096
 
 class VideoBuffer:
     def __init__(self, buffer: int, ht: int, wd: int, device,
-                 device_scale: int = 8):
+                 stereo: bool = False, device_scale: int = 8):
         self.buffer, self.ht, self.wd = buffer, ht, wd
         self.device = torch.device(device)
         self.device_scale = s = device_scale
         self.h8, self.w8 = h8, w8 = ht // s, wd // s
-        self.rig = 1
-        self.stereo = False
+        self.stereo = bool(stereo)
+        self.rig = rig = 2 if self.stereo else 1
 
         self.counter = 0
         self.has_gt = False
@@ -50,7 +51,8 @@ class VideoBuffer:
         self.disps_up = torch.zeros((B, ht, wd), dtype=f32, device=dev)
         self.intrinsics = torch.zeros((4,), dtype=f32, device=dev)  # 1/8 res
         bf16 = torch.bfloat16
-        self.fmaps = torch.zeros((B, 1, h8, w8, 128), dtype=bf16, device=dev)
+        self.fmaps = torch.zeros((B, rig, h8, w8, 128), dtype=bf16,
+                                 device=dev)
         self.nets = torch.zeros((B, h8, w8, 128), dtype=bf16, device=dev)
         self.inps = torch.zeros((B, h8, w8, 128), dtype=bf16, device=dev)
         # per-frame GRU damping state
@@ -70,7 +72,7 @@ class VideoBuffer:
                inp, gt_pose=None, image=None):
         """Write a new keyframe at the current counter.
 
-        depth [ht, wd] or None; fmap [1, h8, w8, 128]; net/inp
+        depth [ht, wd] or None; fmap [rig, h8, w8, 128]; net/inp
         [h8, w8, 128]; pose / disp (scalar or [h8, w8]) may be None to
         keep the defaults; intrinsics [4] at 1/8 res or None; image
         [ht, wd, 3] in [0, 1] or None."""

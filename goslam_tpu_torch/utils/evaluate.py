@@ -60,3 +60,19 @@ def ate_rmse(est_c2w: np.ndarray, gt_c2w: np.ndarray,
         "scale": s,
     }
 
+
+
+def write_tum_trajectory(path: str, timestamps: np.ndarray,
+                         c2w: np.ndarray):
+    """TUM/ETH3D submission format: `t tx ty tz qx qy qz qw` per line,
+    timestamps at 9 decimals and pose entries at 14 (the benchmark
+    servers' format)."""
+    from scipy.spatial.transform import Rotation
+
+    with open(path, "w") as f:
+        for t, m in zip(timestamps, c2w):
+            q = Rotation.from_matrix(m[:3, :3]).as_quat()  # x y z w
+            p = m[:3, 3]
+            vals = " ".join(f"{x:.14f}" for x in
+                            (p[0], p[1], p[2], q[0], q[1], q[2], q[3]))
+            f.write(f"{t:.9f} {vals}\n")

@@ -435,7 +435,7 @@ def _backends(dist):
     jbe.video = SimpleNamespace(stereo=False, distance=distance)
     jbe.beta = 0.3
     be = Backend.__new__(Backend)
-    be.video = SimpleNamespace(distance=distance)
+    be.video = SimpleNamespace(stereo=False, distance=distance)
     be.beta = 0.3
     be.last_loop_accepts = be.total_loop_accepts = 0
     return be, jbe

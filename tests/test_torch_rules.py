@@ -89,17 +89,15 @@ def test_train_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
     assert not os.path.exists(out)
 
 
-@pytest.mark.parametrize("what", ["mono", "make_video", "viz", "multichip"])
+@pytest.mark.parametrize("what", ["make_video", "viz", "multichip"])
 def test_unported_paths_raise(what, tmp_path, monkeypatch):
     """What the port does not have yet says so instead of running
-    something else: mono, the mesh video, the live viewer, and mapping
-    sharded over more than one GPU."""
+    something else: the mesh video, the live viewer, and mapping sharded
+    over more than one GPU."""
     from goslam_tpu_torch.system import SLAMSystem
     cfg = _cfg()
     device = "cpu"
-    if what == "mono":
-        cfg["mode"] = "mono"
-    elif what in ("make_video", "viz"):
+    if what in ("make_video", "viz"):
         cfg[what] = True
     else:
         cfg["only_tracking"] = False
