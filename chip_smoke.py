@@ -76,6 +76,31 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                      self-edges.  Gates: as mono-128's, and stereo
                      self-edges (ii == jj) in the frontend's graph and in
                      global BA's;
+       shard-map-128 map-128 with ShardMesh([cuda:0] * 2): global BA's
+                     low-memory step and the mapper's train step sharded
+                     over two shards on the one card (edges by source
+                     frame, rays in halves), with make_video and viz on.
+                     Gates: every pose finite, ATE < 0.18 m (bf16: the
+                     sharded run parts from map-128's chaotically), the
+                     mesh metrics inside MAP_GATES, one
+                     mesh/<timestamp>_mesh.ply with triangles per mapping
+                     round during tracking, the viewer's point cloud and
+                     cameras.ply written with points, edge_system and
+                     alt_corr launched by every shard, the shards' edge
+                     counts summing to each graph's valid edges.  Then
+                     phase map_step_sharded: one ray-sharded train step
+                     at map_step's load (perturb 0) against the
+                     single-device step from the same weights: loss terms
+                     within MAP_STEP_LOSS_TOL, the gradient before the
+                     clip and the weights after the step within
+                     MAP_STEP_GRAD_TOL, and its time beside map_step's;
+                     then over ShardMesh([cuda:0, cpu]) a sharded step,
+                     the mapper's pose-BA step and the next step's
+                     gradient against the single-device gradient from
+                     the mapper's weights (the CPU's shard renders
+                     through the model's copy, which must follow the
+                     mapper's steps).  The shards on the card share it:
+                     copies between cards are not measured;
        train-128     the DroidNet trainer (trainer.fit, the flags'
                      defaults of python -m goslam_tpu_torch.train: 128x192
                      with 240x320 mixed in, eight unrolled update and BA
@@ -89,6 +114,16 @@ Phases, each of which exits non-zero on failure (nothing is caught):
                      finite; the checkpoint fit writes read back equal to
                      the parameters in memory; no kernel launched (the
                      trainer's BA differentiates the plain edge system);
+     With shard-map-128, phase shard_vs_single: from the state after
+     accuracy-128's frames tracked in fp32, one global BA (one
+     update_lowmem of two steps) on copies of that state with no mesh,
+     with ShardMesh([cuda:0] * 2), with ShardMesh([cuda:0] * 3)
+     (blocks of uneven size) and with ShardMesh([cuda:0, cpu]) (the
+     CPU's shard runs the network's copy and the kernels' plain
+     versions).  Gates: the same edges, poses within SHARD_POSE_TOL and
+     disparities within SHARD_DISP_TOL of the single-device run, every
+     value finite, edge_system and alt_corr launched by every shard on
+     the card, none by the CPU's, and schur_matvec by none;
      After each path the memory it leaves allocated is printed (with
      --memory, by the repository line that allocated it);
      After accuracy-128, the host synchronizations of one more frontend
@@ -185,6 +220,12 @@ MAP_STEP_WINDOW = 22
 # (readings on an H100: 1.7e-7 and 3.1e-6)
 MAP_STEP_LOSS_TOL = 1e-5
 MAP_STEP_GRAD_TOL = 1e-4
+# map_step_sharded's check over the card and the CPU: the rays it takes
+MAP_STEP_TWO_DEV_RAYS = 1024
+# shard_vs_single: the sharded global BA against the single-device one
+# in fp32 (tests/test_parallel.py's tolerances for the JAX package)
+SHARD_POSE_TOL = 1e-4
+SHARD_DISP_TOL = 1e-3
 # train-128: scripts/train_synthetic.py's recipe at full width, resumed
 # from the in-tree checkpoint, on a pool of TRAIN_SCENES seeded scenes
 # (128x192 and 240x320 taking turns), TRAIN_STEPS steps of trainer.fit
@@ -694,6 +735,14 @@ def map_config(ht: int = 128, wd: int = 192):
     })
 
 
+def shard_map_config():
+    """shard-map-128: map-128's configuration (bf16, as users run it) with
+    the mesh video and the viewer on; the path passes a mesh of
+    SHARD_PATHS[name] shards."""
+    from goslam_tpu_torch.config import update_recursive
+    return update_recursive(map_config(), {"make_video": True, "viz": True})
+
+
 def loop_config(ht: int, wd: int, enable_loop: bool = True):
     """loop-160: two laps of the accuracy configuration's orbit at its
     angle per frame (160 frames, orbit_fraction 2.0), so that lap two
@@ -761,6 +810,8 @@ PATHS = {
     "accuracy-128": (lambda: accuracy_config(128, 192), 0.18,
                      ("edge_system", "alt_corr"), 0),
     "map-128": (map_config, 0.18, ("edge_system", "alt_corr"), 0),
+    "shard-map-128": (shard_map_config, 0.18, ("edge_system", "alt_corr"),
+                      0),
     "accuracy-240": (lambda: accuracy_config(240, 320), 0.25,
                      ("edge_system", "alt_corr"), 0),
     "loop-160": (lambda: loop_config(128, 192), LOOP_ATE_GATE,
@@ -779,6 +830,10 @@ PATHS = {
 
 TRAIN_PATH = "train-128"
 ALL_PATHS = tuple(PATHS) + (TRAIN_PATH,)
+# the paths driven over a mesh, and its number of shards on the card
+SHARD_PATHS = {"shard-map-128": 2}
+# shard_vs_single's sharded runs, each against the single-device run
+SHARD_RUNS = ("2_shards", "3_shards", "2_devices")
 
 
 def memory_held(by_site: bool) -> dict:
@@ -891,6 +946,60 @@ class SelfEdgeCounter:
 
     def __exit__(self, *exc):
         self.cls.update, self.cls.update_lowmem = self._orig
+
+
+def counting_mesh(shards):
+    """A ShardMesh that also counts each shard's kernel launches: what
+    ops/kernels.py's counts grew by while the mesh ran that shard's part
+    of a step (``ShardMesh.map``), in ``.launches``.  shards: a number
+    of shards on cuda:0, or the list of their devices."""
+    from goslam_tpu_torch.ops import kernels
+    from goslam_tpu_torch.parallel import ShardMesh
+
+    class CountingMesh(ShardMesh):
+        def __init__(self, devices):
+            super().__init__(devices)
+            self.launches = [dict.fromkeys(kernels.LAUNCHES, 0)
+                             for _ in self.devices]
+
+        def map(self, fn, *per_shard):
+            out = []
+            for s in range(self.size):
+                before = dict(kernels.LAUNCHES)
+                out.append(fn(*(a[s] for a in per_shard)))
+                for k, v in kernels.LAUNCHES.items():
+                    self.launches[s][k] += v - before[k]
+            return out
+
+    if isinstance(shards, int):
+        shards = [torch.device("cuda", 0)] * shards
+    return CountingMesh(shards)
+
+
+class EdgeSplitRecorder:
+    """Each sharded low-memory step's split of the edges, while installed:
+    the valid edges each shard got and the graph's valid edges
+    (parallel/sharded_ba.partition_edge_slots, wrapped)."""
+
+    def __init__(self):
+        from goslam_tpu_torch.parallel import sharded_ba
+        self.mod = sharded_ba
+        self.splits = []
+
+    def __enter__(self):
+        part = self._orig = self.mod.partition_edge_slots
+
+        def recorded(ii, valid, n_frames, n_shards):
+            slots = part(ii, valid, n_frames, n_shards)
+            self.splits.append(((slots < len(ii)).sum(1).tolist(),
+                                int(np.asarray(valid).sum())))
+            return slots
+
+        self.mod.partition_edge_slots = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.partition_edge_slots = self._orig
 
 
 def sync_sites(fn):
@@ -1052,7 +1161,8 @@ class StepTimer:
 
     def __init__(self, mapper):
         self.events, self.samples = [], []
-        step = mapper.train_step
+        sharded = mapper.sharded_step is not None
+        step = mapper.sharded_step if sharded else mapper.train_step
 
         def timed(rays_o, *a, **k):
             ev = (torch.cuda.Event(enable_timing=True),
@@ -1065,7 +1175,10 @@ class StepTimer:
                                 * (mapper.n_samples + mapper.n_surface))
             return out
 
-        mapper.train_step = timed
+        if sharded:
+            mapper.sharded_step = timed
+        else:
+            mapper.train_step = timed
 
     def summary(self):
         torch.cuda.synchronize()
@@ -1196,6 +1309,276 @@ def map_step_vs_cpu(m, rays, bnd):
     return out
 
 
+def clone_mapper(m, mesh=None):
+    """A mapper with a copy of m's model and optimizer state (m's video
+    shared), perturb 0 and, with a mesh, its ray-sharded step."""
+    from goslam_tpu_torch.mapping.mapper import make_optimizer
+    from goslam_tpu_torch.parallel.sharded_mapping import ShardedMapStep
+    c = copy.copy(m)
+    c.__dict__.pop("train_step", None)       # a timer's wrapper of m's
+    c.model = copy.deepcopy(m.model)
+    names = {p: n for n, p in m.model.named_parameters()}
+    by_name = dict(c.model.named_parameters())
+    c.params = [by_name[names[p]] for p in m.params]
+    c.opt = make_optimizer(c.params, m.net_lr, m.grid_lr)
+    c.opt.load_state_dict(copy.deepcopy(m.opt.state_dict()))
+    c.perturb = 0.0
+    c.mesh = mesh
+    c.sharded_step = None if mesh is None else ShardedMapStep(mesh, c)
+    return c
+
+
+def single_grads(m, rays, bnd):
+    """The loss terms and the gradient before the clip (in the order of
+    m.params) of m's step on one device, perturb off."""
+    from goslam_tpu_torch.mapping import renderer
+    with torch.enable_grad():
+        ret = renderer.render_rays(m.model, None, rays[0], rays[1], rays[3],
+                                   bnd, bnd, m.n_samples, m.n_surface)
+        total, terms = m.losses(ret, rays[2], rays[3])
+        grads = torch.autograd.grad(total, m.params)
+    return {k: t.detach() for k, t in terms.items()}, grads
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|, b's device."""
+    return float((a.to(b.device) - b).abs().max()
+                 / b.abs().max().clamp(min=1e-30))
+
+
+def map_step_sharded(slam, n_shards: int = 2, iters: int = 10):
+    """Phase map_step_sharded: one ray-sharded train step over
+    ShardMesh([cuda:0] * n_shards) at map_step's load (MAP_STEP_PIXELS
+    rays over MAP_STEP_WINDOW keyframes of the path's trained map, 24 + 48
+    samples, perturb 0) against the single-device step from the same
+    weights and optimizer state.  Gates: the loss terms within
+    MAP_STEP_LOSS_TOL, each parameter's gradient before the clip and its
+    weights after the step within MAP_STEP_GRAD_TOL (relative to the
+    largest entry), so a gradient S times the single-device one fails.
+    Then both steps' times between CUDA events (mean of `iters`), and
+    the two-device check (``map_step_two_devices``)."""
+    from goslam_tpu_torch.parallel.sharded_mapping import shard_rays
+    m, v = slam.mapper, slam.video
+    n = v.filtered_id
+    frames = [k % n for k in range(MAP_STEP_WINDOW)]
+    batch = m._sample_rays(frames, MAP_STEP_PIXELS // MAP_STEP_WINDOW)
+    rays = [t[:MAP_STEP_PIXELS] for t in batch]
+    bnd = torch.as_tensor(v.bound, dtype=torch.float32, device=v.device)
+    mesh = counting_mesh(n_shards)
+    single, sharded = clone_mapper(m), clone_mapper(m, mesh)
+    names = [n for n, _ in single.model.named_parameters()]
+    order = {p: k for k, p in enumerate(single.params)}
+    by_name = dict(single.model.named_parameters())
+    padded = shard_rays(n_shards, *rays)
+
+    terms1, g1 = single_grads(single, rays, bnd)
+    terms, g = sharded.sharded_step.grads(*padded, bnd, bnd)
+    norm = lambda gs: float(torch.sqrt(sum((x * x).sum() for x in gs)))
+    out = {"shards": n_shards, "rays": MAP_STEP_PIXELS,
+           "loss": {k: _rel(terms[k], terms1[k]) for k in terms1},
+           "grad": {n: _rel(g[order[by_name[n]]], g1[order[by_name[n]]])
+                    for n in names},
+           "grad_norm_ratio": norm(g) / norm(g1)}
+    single.train_step(*rays, bnd, bnd)
+    sharded.sharded_step(*padded, bnd, bnd)
+    weights = dict(sharded.model.named_parameters())
+    out["weights"] = {n: _rel(weights[n].detach(), by_name[n].detach())
+                      for n in names}
+    out["launches_by_shard"] = mesh.launches
+    out["step_ms"] = cuda_ms(lambda: sharded.sharded_step(*padded, bnd, bnd),
+                             iters=iters)
+    out["single_step_ms"] = cuda_ms(lambda: single.train_step(*rays, bnd,
+                                                              bnd),
+                                    iters=iters)
+    ok = (all(np.isfinite(x) and x <= MAP_STEP_LOSS_TOL
+              for x in out["loss"].values())
+          and all(np.isfinite(x) and x <= MAP_STEP_GRAD_TOL
+                  for d in (out["grad"], out["weights"])
+                  for x in d.values()))
+    if not ok:
+        raise SystemExit(f"map_step_sharded: the sharded step disagrees "
+                         f"with the single-device step: {out}")
+    out["two_devices"] = map_step_two_devices(m, rays, bnd)
+    return out
+
+
+def map_step_two_devices(m, rays, bnd, n_rays: int = MAP_STEP_TWO_DEV_RAYS):
+    """The ray-sharded step over two devices, ShardMesh([cuda:0, cpu]):
+    the CPU's shard renders through the model's copy there.  From m's
+    weights (perturb 0, the first n_rays rays): a sharded step, then the
+    mapper's pose-BA step (which updates the mapper's model alone), then
+    the gradient of the next sharded step against the single-device
+    gradient from the weights the mapper now holds.  Gates: the loss
+    terms within MAP_STEP_LOSS_TOL and the gradient within
+    MAP_STEP_GRAD_TOL (the CPU's arithmetic, as in map_step_vs_cpu); a
+    copy that kept its weights from before the pose-BA step would fail
+    them."""
+    from goslam_tpu_torch.parallel import ShardMesh
+    rays = [t[:n_rays] for t in rays]
+    mesh = ShardMesh([bnd.device, torch.device("cpu")])
+    c = clone_mapper(m, mesh)
+    c.sharded_step(*rays, bnd, bnd)
+    pix = c._sample_pixels(list(range(min(c.video.filtered_id, 4))),
+                           n_rays // 4)
+    if pix is None:
+        raise SystemExit("map_step_sharded: no pixels for the pose-BA step")
+    c2w_base, fo, dc, gcol, gdep = pix
+    deltas = torch.zeros((c2w_base.shape[0], 6), device=bnd.device,
+                         requires_grad=True)
+    cam_opt = torch.optim.Adam([deltas], lr=c.ba_cam_lr)
+    c.train_step_ba(deltas, cam_opt, c2w_base, fo, dc, gcol, gdep, bnd, bnd)
+    terms, g = c.sharded_step.grads(*rays, bnd, bnd)
+    terms1, g1 = single_grads(c, rays, bnd)
+    names = {p: n for n, p in c.model.named_parameters()}
+    out = {"devices": [str(d) for d in mesh.devices], "rays": n_rays,
+           "loss": {k: _rel(terms[k], terms1[k]) for k in terms1},
+           "grad": {names[p]: _rel(a, b) for p, a, b in zip(c.params, g,
+                                                             g1)}}
+    ok = (all(np.isfinite(x) and x <= MAP_STEP_LOSS_TOL
+              for x in out["loss"].values())
+          and all(np.isfinite(x) and x <= MAP_STEP_GRAD_TOL
+                  for x in out["grad"].values()))
+    if not ok:
+        raise SystemExit(f"map_step_sharded: the step over the card and "
+                         f"the CPU disagrees with the mapper's own: {out}")
+    return out
+
+
+def shard_vs_single(out_dir: str):
+    """Phase shard_vs_single: accuracy-128's frames tracked in fp32, then
+    one global BA (backend.dense_ba over every keyframe, one
+    update_lowmem of two steps) from that state four times: with no
+    mesh, over 2 and over 3 shards on the card, and over 2 devices, the
+    card and the CPU (the CPU's shard runs the network's copy there and
+    the plain versions of the kernels).  Gates: the same keyframes and
+    edges, poses within SHARD_POSE_TOL and disparities within
+    SHARD_DISP_TOL of the single-device run, all finite, every shard on
+    the card launching edge_system and alt_corr and the CPU's shard no
+    kernel, no schur_matvec, and the shards' edges summing to the
+    graph's."""
+    from goslam_tpu_torch.data.synthetic import Synthetic
+    from goslam_tpu_torch.models.convert import load_checkpoint
+    from goslam_tpu_torch.ops import kernels
+    from goslam_tpu_torch.system import SLAMSystem
+
+    cfg = accuracy_config(128, 192)
+    cfg["tracking"]["compute_dtype"] = "float32"
+    frames = mode_frames(cfg, Synthetic(cfg))
+    slam = SLAMSystem(cfg, state_dict=load_checkpoint(CKPT), output=out_dir,
+                      only_tracking=True)
+    for i, (img, depth, intr, gt) in enumerate(frames):
+        slam.track(float(i), img, depth, intr, gt)
+    v, n = slam.video, slam.video.counter
+    state = {k: getattr(v, k).clone() for k in ("poses", "disps",
+                                                "damping")}
+    meshes = {"single": None, "2_shards": 2, "3_shards": 3,
+              "2_devices": [torch.device("cuda", 0), torch.device("cpu")]}
+    runs = {}
+    for key, shards in meshes.items():
+        for k, t in state.items():
+            getattr(v, k).copy_(t)
+        mesh = counting_mesh(shards) if shards else None
+        slam.backend.mesh = mesh
+        kernels.reset_launches()
+        with EdgeSplitRecorder() as split:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counts = slam.backend.dense_ba(0, n, steps=2)
+            torch.cuda.synchronize()
+        runs[key] = {
+            "s": time.perf_counter() - t0, "counts": counts,
+            "poses": v.poses[:n].clone(), "disps": v.disps[:n].clone(),
+            "launches": dict(kernels.LAUNCHES),
+            "launches_by_shard": mesh.launches if mesh else None,
+            "devices": mesh.devices if mesh else None,
+            "splits": split.splits}
+    slam.backend.mesh = None
+    base = runs["single"]
+    out = {"keyframes": n, "edges": base["counts"][1]}
+    for key in SHARD_RUNS:
+        r = runs[key]
+        out[key] = {
+            "s": r["s"], "single_s": base["s"], "counts": r["counts"],
+            "pose_err": float((r["poses"] - base["poses"]).abs().max()),
+            "disp_err": float((r["disps"] - base["disps"]).abs().max()),
+            "launches": r["launches"],
+            "launches_by_shard": r["launches_by_shard"],
+            "edges_by_shard": r["splits"]}
+    say(f"shard_vs_single (fp32; the n_shards runs share one card, "
+        f"cuda:0, and 2_devices runs a shard on the CPU: cross-device "
+        f"copies between cards are not measured here): {json.dumps(out)}")
+    for key in SHARD_RUNS:
+        r, o = runs[key], out[key]
+        finite = bool(torch.isfinite(r["poses"]).all()
+                      and torch.isfinite(r["disps"]).all())
+        if not (finite and r["counts"] == base["counts"]
+                and o["pose_err"] <= SHARD_POSE_TOL
+                and o["disp_err"] <= SHARD_DISP_TOL):
+            raise SystemExit(f"shard_vs_single: {key} parts from the "
+                             f"single-device run: {o}")
+        on_card = [d.type == "cuda" for d in r["devices"]]
+        if not (all((c["edge_system"] > 0 and c["alt_corr"] > 0) if card
+                    else not any(c.values())
+                    for c, card in zip(r["launches_by_shard"], on_card))
+                and r["launches"]["schur_matvec"] == 0):
+            raise SystemExit(f"shard_vs_single: a shard on the card "
+                             f"launched no edge_system or alt_corr, the "
+                             f"CPU's shard launched a kernel, or "
+                             f"schur_matvec ran: {o['launches_by_shard']}")
+        if not r["splits"] or any(sum(c) != e for c, e in r["splits"]):
+            raise SystemExit(f"shard_vs_single: the shards' edges do not "
+                             f"sum to the graph's: {r['splits']}")
+    return out
+
+
+def shard_checks(name, mesh, splits, out_dir, tracking_rounds):
+    """A sharded path's own gates: one mesh/<timestamp>_mesh.ply with
+    triangles per mapping round during tracking (make_video), the
+    viewer's point cloud and cameras.ply with points (viz), edge_system
+    and alt_corr launched by every shard, and each sharded step's edges
+    summing to its graph's valid edges."""
+    from goslam_tpu_torch.mapping import mesher
+    mesh_dir = os.path.join(out_dir, "mesh")
+    rounds = sorted(f for f in os.listdir(mesh_dir)
+                    if re.fullmatch(r"\d{5}_mesh\.ply", f))
+    tris = [len(mesher.load_ply(os.path.join(mesh_dir, f))[1])
+            for f in rounds]
+    pc_dir = os.path.join(out_dir, "pointcloud")
+    clouds = sorted(f for f in os.listdir(pc_dir) if f.endswith("_pc.ply"))
+    points = len(mesher.load_ply(os.path.join(pc_dir, clouds[-1]))[0]) \
+        if clouds else 0
+    cams = os.path.join(pc_dir, "cameras.ply")
+    cameras = 0
+    if os.path.exists(cams):
+        with open(cams) as f:
+            cameras = int(re.search(r"element vertex (\d+)",
+                                    f.read(300)).group(1)) // 5
+    out = {"shards": mesh.size, "tracking_rounds": tracking_rounds,
+           "round_meshes": dict(zip(rounds, tris)),
+           "pointclouds": len(clouds), "points": points,
+           "cameras": cameras, "launches_by_shard": mesh.launches,
+           "sharded_steps": len(splits),
+           "edges_by_shard": splits[:3] + (["..."] if len(splits) > 3
+                                           else [])}
+    print(f"shards {name}: the {mesh.size} shards share one card (cuda:0): "
+          f"cross-device copies are not measured here; {json.dumps(out)}",
+          flush=True)
+    if not (len(rounds) == tracking_rounds > 0 and min(tris) > 0):
+        raise SystemExit(f"{name}: {len(rounds)} round meshes for "
+                         f"{tracking_rounds} mapping rounds: {tris}")
+    if not (points > 0 and cameras > 0):
+        raise SystemExit(f"{name}: the viewer wrote {points} points and "
+                         f"{cameras} cameras")
+    if not all(c["edge_system"] > 0 and c["alt_corr"] > 0
+               for c in mesh.launches):
+        raise SystemExit(f"{name}: a shard launched no edge_system or "
+                         f"alt_corr: {mesh.launches}")
+    if not splits or any(sum(c) != e for c, e in splits):
+        raise SystemExit(f"{name}: the shards' edges do not sum to the "
+                         f"graph's: {splits}")
+    return out
+
+
 def run_path(name: str, out_dir: str, phases: bool = False,
              trace: bool = False, syncs: bool = False,
              step: bool = False):
@@ -1220,8 +1603,9 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     mapping = not cfg["only_tracking"]
     ds = Synthetic(cfg)
     frames = mode_frames(cfg, ds)
+    mesh = counting_mesh(SHARD_PATHS[name]) if name in SHARD_PATHS else None
     slam = SLAMSystem(cfg, state_dict=load_checkpoint(CKPT), output=out_dir,
-                      only_tracking=cfg["only_tracking"])
+                      only_tracking=cfg["only_tracking"], mesh=mesh)
     gt_mesh, rounds, steps = "", [], None
     if mapping:
         gt_mesh = os.path.join(out_dir, "gt_mesh.ply")
@@ -1265,7 +1649,8 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     gc.collect()
     mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with ShapeRecorder() as rec, SelfEdgeCounter() as self_edges:
+    with ShapeRecorder() as rec, SelfEdgeCounter() as self_edges, \
+            EdgeSplitRecorder() as split:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1273,6 +1658,7 @@ def run_path(name: str, out_dir: str, phases: bool = False,
             slam.track(float(i), img, depth, intr, gt)
         torch.cuda.synchronize()
         t_track = time.perf_counter() - t0
+        tracking_rounds = len(rounds)
         metrics = slam.terminate(stream=stream(), eval_mesh_path=gt_mesh)
         torch.cuda.synchronize()
         t_total = time.perf_counter() - t0
@@ -1310,6 +1696,12 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     if mapping:
         res["map"] = map_result(name, slam, metrics, out_dir, rounds, steps,
                                 res)
+    if mesh is not None:
+        res["shards"] = shard_checks(name, mesh, split.splits, out_dir,
+                                     tracking_rounds)
+        res["map_step_sharded"] = map_step_sharded(slam, mesh.size)
+        print(f"map_step_sharded: {json.dumps(res['map_step_sharded'])}",
+              flush=True)
     if step:
         # before anything trains the map further (the mapper round of
         # `syncs`, map_step)
@@ -1822,6 +2214,20 @@ def main(argv=None) -> int:
         print(f"memory after {name}: {json.dumps(held[name])}", flush=True)
     if args.memory:
         torch.cuda.memory._record_memory_history(enabled=None)
+    shard_phase = None
+    if SHARD_PATHS.keys() & set(names):
+        shard_phase = shard_vs_single(os.path.join(args.out,
+                                                   "shard_vs_single"))
+    for name in SHARD_PATHS:
+        if name in runs:
+            step = runs[name]["map_step_sharded"]
+            single = runs.get("map-128", {}).get("map_step")
+            print(f"{name}: the sharded map step {step['step_ms']:.2f} ms "
+                  f"over {step['shards']} shards on one card, the "
+                  f"single-device step {step['single_step_ms']:.2f} ms in "
+                  f"the same phase; map_step (map-128, perturb on) "
+                  + (f"{single['step_ms']:.2f} ms" if single
+                     else "not driven"), flush=True)
     if "map-128" in runs and "accuracy-128" in runs:
         d = abs(runs["map-128"]["ate_rmse"] - runs["accuracy-128"]["ate_rmse"])
         print(f"map-128 ATE {runs['map-128']['ate_rmse']:.5f} m, "
@@ -1935,6 +2341,12 @@ def main(argv=None) -> int:
             "launches_by_path": {
                 **{p: r["launches"][name] for p, r in runs.items()},
                 TRAIN_PATH: train["launches"][name]},
+            "launches_by_shard": {
+                **{p: [c[name] for c in runs[p]["shards"]
+                       ["launches_by_shard"]] for p in SHARD_PATHS},
+                **{f"shard_vs_single {k}": [
+                    c[name] for c in shard_phase[k]["launches_by_shard"]]
+                   for k in SHARD_RUNS}},
             "max_abs_err": max(c["max_abs_err"]
                                for c in checked[name].values()),
             "ms": res["ms"], "wrapper_ms": res["wrapper_ms"],

@@ -18,6 +18,10 @@ bucket of (2, 4, 8, ..., 64) frames whose rays carry depth 0, and the
 ray batch to ``bucket(R)`` rays by repeating its first rays with depth
 0; those rays count in the eikonal mean and the far clamp.
 
+With a ``ShardMesh`` of more than one shard (``mesh=``) each map step
+is ray-sharded (``parallel.sharded_mapping.ShardedMapStep``); the pose-BA
+step stays on one device.
+
 Host random draws (the frame schedule, the pose-BA pixels) come from
 ``np.random.default_rng(seed)``, device draws (ray keys, stratified
 jitter) from a ``torch.Generator`` on the video's device; the functions
@@ -86,6 +90,15 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
             for g in grads]
 
 
+def make_optimizer(params, net_lr: float, grid_lr: float):
+    """AdamW in two groups: params[0], the hash table, at grid_lr, the
+    rest at net_lr; weight decay 0.01 on both."""
+    return torch.optim.AdamW(
+        [{"params": params[:1], "lr": grid_lr},
+         {"params": params[1:], "lr": net_lr}],
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, fused=True)
+
+
 def _step(opt: torch.optim.Optimizer, params, grads):
     """One optimizer step with the given gradients."""
     for p, g in zip(params, grads):
@@ -96,7 +109,7 @@ def _step(opt: torch.optim.Optimizer, params, grads):
 
 
 class Mapper:
-    def __init__(self, video, cfg: dict, seed: int = 0):
+    def __init__(self, video, cfg: dict, seed: int = 0, mesh=None):
         m = cfg["mapping"]
         self.video = video
         self.cfg = cfg
@@ -135,10 +148,8 @@ class Mapper:
         named = list(self.model.named_parameters())
         self.params = [p for n, p in named if n.endswith("table")] \
             + [p for n, p in named if not n.endswith("table")]
-        self.opt = torch.optim.AdamW(
-            [{"params": self.params[:1], "lr": m["grid_lr"]},
-             {"params": self.params[1:], "lr": m["net_lr"]}],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, fused=True)
+        self.net_lr, self.grid_lr = m["net_lr"], m["grid_lr"]
+        self.opt = make_optimizer(self.params, self.net_lr, self.grid_lr)
 
         self.last_visit = 0
         self.init = True
@@ -146,6 +157,13 @@ class Mapper:
         self.np_rng = np.random.default_rng(seed)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
+
+        # the ray-sharded map step over a mesh of two or more shards
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.sharded_step = None
+        if self.mesh is not None:
+            from ..parallel.sharded_mapping import ShardedMapStep
+            self.sharded_step = ShardedMapStep(self.mesh, self)
 
     # ------------------------------------------------------------------
     def _jitter(self) -> Optional[torch.Tensor]:
@@ -295,7 +313,9 @@ class Mapper:
 
     def _optimize(self, batch, bound, realtime_bound, iters: int):
         """`iters` steps on one ray batch, padded to bucket(R) rays by
-        repeating its first rays with depth 0."""
+        repeating its first rays with depth 0; with a mesh the ray-sharded
+        step, on the batch padded again to a multiple of the shards
+        (``shard_rays``)."""
         rays_o, rays_d, gt_color, gt_depth = batch
         R = rays_o.shape[0]
         pad = bucket(R) - R
@@ -304,11 +324,17 @@ class Mapper:
             rays_d = torch.cat([rays_d, rays_d[:pad]])
             gt_color = torch.cat([gt_color, gt_color[:pad]])
             gt_depth = torch.cat([gt_depth, gt_depth.new_zeros(pad)])
+        step = self.train_step
+        if self.mesh is not None:
+            from ..parallel.sharded_mapping import shard_rays
+            rays_o, rays_d, gt_color, gt_depth = shard_rays(
+                self.mesh.size, rays_o, rays_d, gt_color, gt_depth)
+            step = self.sharded_step
         metrics = None
         for _ in range(iters):
             self.global_step += 1
-            metrics = self.train_step(rays_o, rays_d, gt_color, gt_depth,
-                                      bound, realtime_bound)
+            metrics = step(rays_o, rays_d, gt_color, gt_depth, bound,
+                           realtime_bound)
         return metrics
 
     # ------------------------------------------------------------------

@@ -240,8 +240,6 @@ def _compact(verts, tris):
 def save_ply(path: str, verts: np.ndarray, tris: np.ndarray,
              colors: Optional[np.ndarray] = None):
     """Minimal binary-little-endian PLY writer."""
-    import struct
-
     with open(path, "wb") as f:
         hdr = ["ply", "format binary_little_endian 1.0",
                f"element vertex {len(verts)}",
@@ -253,8 +251,9 @@ def save_ply(path: str, verts: np.ndarray, tris: np.ndarray,
                 "property list uchar int vertex_indices", "end_header"]
         f.write(("\n".join(hdr) + "\n").encode())
         if colors is not None:
-            for p, c in zip(verts, colors):
-                f.write(struct.pack("<fff", *p) + struct.pack("BBB", *c))
+            rec = np.empty(len(verts), [("p", "<f4", 3), ("c", "u1", 3)])
+            rec["p"], rec["c"] = verts, colors
+            f.write(rec.tobytes())
         else:
             f.write(np.asarray(verts, "<f4").tobytes())
         face = np.empty((len(tris), 13), np.uint8)

@@ -20,13 +20,16 @@ import torch
 
 
 def sample_z_vals(r: Optional[torch.Tensor], rays_o, rays_d, gt_depth,
-                  bound, n_samples: int, n_surface: int):
+                  bound, n_samples: int, n_surface: int, depth_max=None):
     """Returns (z_vals [R, n_samples + n_surface], sample_dist [R, 1]).
     r [n_samples] uniform in [0, 1) jitters the uniform samples (one draw
-    for every ray); None leaves them unjittered."""
+    for every ray); None leaves them unjittered.  depth_max replaces the
+    batch's largest depth (the far clamp, the surface range of rays
+    without depth): a ray-sharded caller passes the whole batch's."""
     gt = gt_depth[:, None]
     near = gt * 0.01 + torch.where(gt > 0, 0.0, 0.01)
-    depth_max = gt_depth.max()
+    if depth_max is None:
+        depth_max = gt_depth.max()
 
     d = rays_d[:, None, :]
     t = (bound.T[None] - rays_o[:, None, :]) / torch.where(
@@ -59,10 +62,12 @@ def sample_z_vals(r: Optional[torch.Tensor], rays_o, rays_d, gt_depth,
 
 
 def render_rays(model, r, rays_o, rays_d, gt_depth, bound, realtime_bound,
-                n_samples: int, n_surface: int) -> Dict[str, torch.Tensor]:
-    """Sample and volume-render one ray batch."""
+                n_samples: int, n_surface: int,
+                depth_max=None) -> Dict[str, torch.Tensor]:
+    """Sample and volume-render one ray batch (depth_max: see
+    sample_z_vals)."""
     z_vals, sample_dist = sample_z_vals(r, rays_o, rays_d, gt_depth, bound,
-                                        n_samples, n_surface)
+                                        n_samples, n_surface, depth_max)
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], sample_dist], dim=1)
     return model(rays_o, rays_d, z_vals, dists, bound, realtime_bound)
 

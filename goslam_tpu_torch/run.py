@@ -16,8 +16,11 @@ without ground truth, ``submission.txt``; with mapping, the final
 mapping rounds, the meshes ``mesh/*.ply`` and, with
 ``meshing.eval_rec``, ``metrics_mesh.txt`` against the GT mesh
 (``meshing.gt_mesh_path``, or the synthetic room's own).
-``--calibration_txt`` holds ``fx fy cx cy``.  ``--make_video`` and
-``--viz`` raise (ROADMAP.md, A6).
+``--calibration_txt`` holds ``fx fy cx cy``.  ``--make_video`` saves a
+mesh after every mapping round and, once the run ends, renders the
+meshes into ``mesh_video.mp4`` (``tools/meshvideo.py``, which needs
+matplotlib and OpenCV); ``--viz`` runs the headless live viewer, which
+writes ``pointcloud/*.ply``.
 """
 from __future__ import annotations
 
@@ -151,6 +154,9 @@ def main(argv=None):
 
     metrics = slam.terminate(stream=frames(0), eval_mesh_path=gt_mesh_path)
     print(json.dumps(metrics, indent=2, default=str))
+    if args.make_video:
+        from .tools.meshvideo import make_video
+        make_video(output)
     return metrics
 
 

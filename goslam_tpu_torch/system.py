@@ -1,4 +1,4 @@
-"""SLAMSystem: the pipeline on one device, tracking and mapping.
+"""SLAMSystem: the pipeline, tracking and mapping.
 
 Modes (``mode``): ``rgbd`` (images and depth), ``mono`` (images alone)
 and ``stereo`` (a rectified pair of images a frame, whose self-edges
@@ -16,10 +16,22 @@ take the fixed baseline of ops/projective.py).
                  pass, ``post_processing_iters`` final mapping rounds,
                  and the mesh: extracted, culled, exported and evaluated
 
+With ``make_video`` a low-resolution mesh is saved after every mapping
+round (``mesh/<timestamp>_mesh.ply``, for ``tools/meshvideo.py``); with
+``viz`` the headless ``LiveViewer`` is updated after every keyframe and
+writes its point cloud and cameras at the end.
+
+With a ``ShardMesh`` of two or more shards, global BA (and loop
+closing) shards its edges and the mapper its rays over the mesh; the
+per-frame tracking stays on one device.  The caller passes the mesh
+(``mesh=``); without one, a system on the GPU builds one over every
+visible GPU when there are several and ``multichip`` is on.
+
 Frames are ingested synchronously.  They are quantized the way the JAX
 package ships them to its device -- images to uint8, depth to fp16 -- so
 both packages track the same inputs.  A failure inside global BA or a
-mapping round propagates: it is never swallowed.
+mapping round, in the intermediate mesh or in the viewer propagates: it
+is never swallowed.
 
 The system runs on the GPU unless the caller passes ``device="cpu"``; it
 raises when no GPU is visible and none was asked for.
@@ -42,6 +54,7 @@ from .models.convert import (convert_mapping_params, is_flax_tree,
                              load_checkpoint)
 from .models.droidnet import DroidNet, init_droidnet
 from .ops import lie, projective
+from .parallel import ShardMesh
 from .tracking.backend import Backend
 from .tracking.frontend import Frontend
 from .tracking.motion_filter import MotionFilter
@@ -50,6 +63,7 @@ from .tracking.trajectory_filler import TrajectoryFiller
 from .tracking.video import VideoBuffer
 from .utils import evaluate
 from .utils.obb import OrientedBoundingBox
+from .utils.visualization import LiveViewer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,6 +81,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def default_mesh(device: torch.device, cfg: dict) -> Optional[ShardMesh]:
+    """The mesh a system builds when its caller gives none, where the JAX
+    package builds one: on the GPU, with more than one visible and
+    ``multichip`` on (the default), a mesh of every GPU; else None."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n > 1 and cfg.get("multichip", True):
+        return ShardMesh([torch.device("cuda", i) for i in range(n)])
+    return None
+
+
 @dataclasses.dataclass
 class TrackingResult:
     poses_w2c: np.ndarray          # [N, 7] keyframe poses
@@ -78,7 +102,7 @@ class SLAMSystem:
     def __init__(self, cfg: Optional[dict] = None,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  output: Optional[str] = None, only_tracking: bool = False,
-                 device=None):
+                 device=None, mesh: Optional[ShardMesh] = None):
         self.cfg = cfg or default_config()
         self.device = resolve_device(device)
         cam = self.cfg["cam"]
@@ -90,22 +114,11 @@ class SLAMSystem:
         if self.mode not in ("mono", "stereo", "rgbd"):
             raise ValueError(f"mode {self.mode!r}: one of mono, stereo, "
                              f"rgbd")
-        if self.cfg.get("make_video", False):
-            raise NotImplementedError(
-                "make_video (meshes after every mapping round, "
-                "tools/meshvideo.py) is not ported yet (ROADMAP.md, queue A, "
-                "A6)")
-        if self.cfg.get("viz", False):
-            raise NotImplementedError(
-                "the live viewer is not ported yet (ROADMAP.md, queue A, "
-                "A6)")
-        if (not self.only_tracking and self.cfg.get("multichip", True)
-                and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "ray-sharded mapping over several GPUs is not ported yet "
-                "(ROADMAP.md, queue A, A3); set multichip: False to map "
-                "on one GPU")
+        # global BA and the mapper shard over a mesh of two or more
+        # shards: the caller's, or every visible GPU
+        if mesh is None:
+            mesh = default_mesh(self.device, self.cfg)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         self.output = output or self.cfg["data"].get("output", "") or "output"
         os.makedirs(self.output, exist_ok=True)
 
@@ -124,7 +137,8 @@ class SLAMSystem:
                                  self.device, stereo=self.mode == "stereo")
         self.motion_filter = MotionFilter(self.net, self.video,
                                           thresh=tr["motion_filter"]["thresh"])
-        self.backend = Backend(self.net, self.video, self.cfg)
+        self.backend = Backend(self.net, self.video, self.cfg,
+                               mesh=self.mesh)
         self.frontend = Frontend(self.net, self.video, self.cfg,
                                  loop_closing=self.backend)
         self.traj_filler = TrajectoryFiller(self.net, self.video,
@@ -135,13 +149,22 @@ class SLAMSystem:
         else:
             self.multiview_filter = MultiviewFilter(self.video, self.cfg,
                                                     warmup=tr["warmup"])
-            self.mapper = Mapper(self.video, self.cfg)
+            self.mapper = Mapper(self.video, self.cfg, mesh=self.mesh)
 
         self.global_ba_every = tr.get("global_ba_every", 10)
         self.mapping_every = self.cfg["mapping"].get("mapping_every", 5)
         self._kf_since_ba = 0
         self._kf_since_map = 0
         self.frame_count = 0
+        self.make_video = bool(self.cfg.get("make_video", False))
+        self.viewer = None
+        if self.cfg.get("viz", False):
+            v = self.cfg.get("viz_options", {}) or {}
+            self.viewer = LiveViewer(
+                self.video, self.output,
+                filter_thresh=v.get("filter_thresh", 0.005),
+                filter_count=v.get("filter_count", 2),
+                stride=v.get("stride", 1), save_every=v.get("save_every", 10))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -170,7 +193,8 @@ class SLAMSystem:
     def _drain_one(self, timestamp, img, dep, intrinsics, gt_pose) -> bool:
         """Motion filter, frontend and, every `global_ba_every` keyframes,
         global BA, every `mapping_every` keyframes the multiview filter
-        and, when it published, a mapper round, for one quantized frame.
+        and, when it published, a mapper round (and with ``make_video``
+        its mesh), then the viewer's update, for one quantized frame.
         Returns the admit decision."""
         is_kf = self.motion_filter.track(timestamp, img, dep, intrinsics,
                                          gt_pose)
@@ -188,7 +212,31 @@ class SLAMSystem:
                 self._kf_since_map = 0
                 if self.multiview_filter():
                     self.mapper()
+                    if self.make_video:
+                        self._save_intermediate_mesh()
+            if self.viewer is not None:
+                self.viewer.update()
         return is_kf
+
+    def _save_intermediate_mesh(self):
+        """The map's mesh after a mapping round, for the mesh video: at
+        resolution min(meshing.resolution, 192), cut to the bound, as
+        mesh/<timestamp of the last keyframe>_mesh.ply."""
+        cfg_m = self.cfg["meshing"]
+        if float(np.abs(self.video.bound).sum()) < 1e-6:
+            return
+        bound = torch.as_tensor(self.video.bound, dtype=torch.float32,
+                                device=self.device)
+        v, t = M.extract_mesh(self.mapper.model, bound, bound,
+                              resolution=min(int(cfg_m["resolution"]), 192),
+                              level_set=cfg_m["level_set"])
+        if len(t) == 0:
+            return
+        v, t = M.cull_by_bound(v, t, self.video.bound)
+        ts = int(float(self.video.timestamp[self.video.counter - 1]))
+        mesh_dir = os.path.join(self.output, "mesh")
+        os.makedirs(mesh_dir, exist_ok=True)
+        M.save_ply(os.path.join(mesh_dir, f"{ts:05d}_mesh.ply"), v, t)
 
     def flush(self):
         """Ingest is synchronous: nothing is in flight.  Kept so callers of
@@ -215,8 +263,13 @@ class SLAMSystem:
         est_poses.npy (c2w [N,4,4]) and, with ground truth,
         metrics_traj.txt into the output directory, without it
         submission.txt (the TUM format, at the stream's own timestamps);
-        with mapping, mesh/*.ply and metrics_mesh.txt."""
+        with mapping, mesh/*.ply and metrics_mesh.txt; with ``viz`` the
+        viewer's pointcloud/*_pc.ply and pointcloud/cameras.ply."""
         self.finalize_tracking()
+        if self.viewer is not None:
+            self.viewer.update()
+            self.viewer.save_pointcloud()
+            self.viewer.save_cameras()
         n = self.video.counter
         self.save_checkpoint(os.path.join(self.output, "go.ckpt"))
         gt_record, ts_record = [], []

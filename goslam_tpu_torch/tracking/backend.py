@@ -5,7 +5,8 @@ Builds an edge set over [t_start, t_end) from the flow-distance matrix
 native code, ``native/greedy.cpp``; in loop mode a candidate must also
 pass a neighbourhood-consistency vote),
 then runs the low-memory update (alt-corr + edge-chunked GRU + full DBA)
-over it.
+over it.  With a ``ShardMesh`` (``mesh=``) the low-memory update shards
+its edges over the mesh, in global BA and in loop closing alike.
 """
 from __future__ import annotations
 
@@ -59,11 +60,12 @@ def propose_scan_plain(d, rawd, thresh, nms, es_len0, max_factors, loop,
 
 
 class Backend:
-    def __init__(self, net, video: VideoBuffer, cfg: dict):
+    def __init__(self, net, video: VideoBuffer, cfg: dict, mesh=None):
         t = cfg["tracking"]
         b = t["backend"]
         self.model = net
         self.video = video
+        self.mesh = mesh
         self.beta = t["beta"]
         self.upsample = t.get("upsample", False)
         self.backend_thresh = b["thresh"]
@@ -153,7 +155,7 @@ class Backend:
         return FactorGraph(self.video, self.model, max_factors=max_factors,
                            corr_impl="alt", upsample=self.upsample,
                            inac_capacity=-1,
-                           compute_dtype=self.compute_dtype)
+                           compute_dtype=self.compute_dtype, mesh=self.mesh)
 
     @torch.no_grad()
     def dense_ba(self, t_start, t_end, steps=6, motion_only=False):

@@ -13,6 +13,10 @@ Two correlation backends:
     ``update_lowmem``).  On CUDA the alt-corr is the hand-written kernel
     ``csrc/alt_corr.cu``.
 
+With a ``ShardMesh`` of more than one shard (``mesh=``), the low-memory
+step of global BA shards its edges over the mesh by source frame
+(``_lowmem_step_sharded``); the frontend's update stays on one device.
+
 Slots are updated in place.  Edges are computed over every slot and
 masked by validity, so results do not depend on which slots are free.
 
@@ -30,6 +34,7 @@ import torch
 
 from ..models.droidnet import upsample_disp
 from ..ops import corr, dba, projective
+from ..parallel import sharded_ba
 from ..utils.greedy import greedy_nms_scan
 from ..utils.shapes import bucket
 from .video import VideoBuffer
@@ -57,9 +62,12 @@ class FactorGraph:
     def __init__(self, video: VideoBuffer, net, max_factors: int = 96,
                  corr_impl: str = "volume", upsample: bool = False,
                  inac_capacity: int = 0, chunk: int = 256,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
         self.video = video
         self.model = net
+        # the low-memory step shards its edges over a mesh of two or more
+        # shards
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         self.max_factors = max_factors
         self.corr_impl = corr_impl
         self.upsample = upsample
@@ -429,54 +437,39 @@ class FactorGraph:
 
     def _lowmem_step(self, P, Tb, t0, t1, iters, lm, ep, motion_only):
         """One step, the JAX package's ``_lowmem_kernel``: alt-corr GRU
-        over the edge chunks (a Python loop updating the slabs in place),
-        whole-graph GraphAgg, then DBA over frames [0, P).  Windows of
-        CG_MIN_POSES poses or more take the matrix-free PCG solver: the
-        dense Cholesky solve dominates beyond a few hundred poses."""
-        solver = "cg" if P >= CG_MIN_POSES else "chol"
+        over the edge chunks (``_gru_chunks``, updating the slabs in
+        place), whole-graph GraphAgg, then DBA over frames [0, P).
+        Windows of CG_MIN_POSES poses or more take the matrix-free PCG
+        solver: the dense Cholesky solve dominates beyond a few hundred
+        poses.  With a mesh (and not motion-only) the step is sharded:
+        ``_lowmem_step_sharded``."""
         v = self.video
-        cdt = self.cdt
-        h8, w8 = self.h8, self.w8
         max_deg = self._max_deg(self.ii[self.valid])
+        if self.mesh is not None and not motion_only:
+            self._lowmem_step_sharded(P, Tb, t0, t1, iters, lm, ep, max_deg)
+            return
+        solver = "cg" if P >= CG_MIN_POSES else "chol"
 
         valid_np = self.valid
         valid = self._t(valid_np)
         ii_s = self._t(np.where(valid_np, self.ii, 0))
         jj_s = self._t(np.where(valid_np, self.jj, 0))
-
-        fpyr = corr.build_feature_pyramid(
-            v.fmaps[:Tb // v.rig].reshape(-1, h8, w8, 128))
-        # each edge's maps in it: ii's left view, and jj's but for a
-        # stereo self-edge, which reads the right view (invalid slots read
-        # map 0, as in the JAX package)
+        # each edge's maps in the pyramid: ii's left view, and jj's but for
+        # a stereo self-edge, which reads the right view (invalid slots
+        # read map 0, as in the JAX package)
         ii_r, jj_r = ii_s * v.rig, jj_s
         if v.stereo:
             jj_r = torch.where(valid, jj_s * v.rig + (ii_s == jj_s).long(),
                                torch.zeros_like(jj_s))
 
-        C = self.chunk
-        for c0 in range(0, self.cap, C):
-            sl = slice(c0, c0 + C)
-            if not valid_np[sl].any():
-                continue           # nothing to update in this chunk
-            ii_ch, jj_ch, ok = ii_s[sl], jj_s[sl], valid[sl]
-            coords, _ = projective.transform(v.poses, v.disps, v.intrinsics,
-                                             ii_ch, jj_ch)
-            motion = self._motion_features(coords, self.target[sl])
-            corr_feat = corr.alt_corr(fpyr, coords, ii_r[sl], jj_r[sl])
-            net_c, delta_c, w_c = self.model.update(
-                self.net[sl].to(cdt), v.inps[ii_ch], corr_feat.to(cdt),
-                motion.to(cdt), dtype=cdt)
-            okm = ok[:, None, None, None]
-            self.net[sl] = torch.where(okm, net_c.to(self.net.dtype),
-                                       self.net[sl])
-            self.target[sl] = torch.where(okm, coords + delta_c.float(),
-                                          self.target[sl])
-            self.weight[sl] = torch.where(
-                okm, w_c.float() * self.model.weight_calib, self.weight[sl])
+        self._gru_chunks(self.model, self._feature_pyramid(Tb), v.poses,
+                         v.disps, v.intrinsics, v.inps, self.net,
+                         self.target, self.weight, ii_s, jj_s, ii_r, jj_r,
+                         valid, valid_np)
 
         ii_local = ii_s.clamp(0, P - 1)
-        eta, has_frame = self._agg_eta_from_nets(ii_local, valid, P)
+        eta, has_frame = self._agg_head(*self._agg_segments(
+            self.model, self.net, ii_local, valid, P))
         damping_w = torch.where(has_frame[:, None, None], eta,
                                 v.damping[:P])
         v.damping[:P] = damping_w
@@ -485,21 +478,139 @@ class FactorGraph:
                         self.target, self.weight, valid, t0, t1, iters, lm,
                         ep, motion_only, max_deg, solver=solver)
 
-    def _agg_eta_from_nets(self, ii_loc, valid, P):
-        """Whole-graph GraphAgg: every edge's final hidden state through
-        the edge-side conv, one fp32 segment mean per frame, the frame
-        head once.  Returns (eta [P,h8,w8] fp32, has_edge [P] bool)."""
-        agg = self.model.update.agg
+    def _lowmem_step_sharded(self, P, Tb, t0, t1, iters, lm, ep, max_deg):
+        """The low-memory step with its edges sharded over the mesh, the
+        JAX package's ``_lowmem_kernel_sharded``: the valid slots are
+        partitioned by source frame (``partition_edge_slots``), and each
+        shard gathers its slots' hidden states, targets and weights and
+        runs the alt-corr GRU on them with the feature pyramid and the
+        window's state replicated on its device, and the network's copy
+        there (``ShardMesh.replicate_module``).  The
+        GraphAgg segment sums are psum'd (every frame's edges lie on one
+        shard) and the frame head runs once; DBA is ``ba_shard_gn``.  The
+        shards' results are scattered back to their slots, the padding
+        dropped.  DBA always solves the dense system here."""
+        mesh, v, cap = self.mesh, self.video, self.cap
+        home = v.device
+        slot_idx = sharded_ba.partition_edge_slots(self.ii, self.valid, P,
+                                                   mesh.size)
+        pad_ok = slot_idx < cap
+        sc = np.minimum(slot_idx, cap - 1).astype(np.int64)
+        ok = pad_ok & self.valid[sc]
+        ii = np.where(ok, self.ii[sc], 0)
+        jj = np.where(ok, self.jj[sc], 0)
+        # a stereo self-edge reads its frame's right view; padding map 0
+        ii_r = ii * v.rig
+        jj_r = np.where(ok, jj * v.rig + (ii == jj) * int(v.stereo), 0)
+
+        fpyr = self._feature_pyramid(Tb)
+        devs = mesh.devices
+        rep = mesh.replicate
+        fpyr_r = [list(levels) for levels in zip(*map(rep, fpyr))]
+
+        def on(dev, a):
+            return torch.as_tensor(a, device=dev)
+
+        def gru(model, dev, s, levels, poses, disps, intr, inps):
+            """The shard's alt-corr GRU over its slots, and its GraphAgg
+            segment sums."""
+            slots = torch.as_tensor(sc[s], device=home)
+            net = self.net[slots].to(dev)
+            target = self.target[slots].to(dev)
+            weight = self.weight[slots].to(dev)
+            valid = on(dev, ok[s])
+            ii_s, jj_s = on(dev, ii[s]), on(dev, jj[s])
+            self._gru_chunks(model, levels, poses, disps, intr, inps, net,
+                             target, weight, ii_s, jj_s, on(dev, ii_r[s]),
+                             on(dev, jj_r[s]), valid, ok[s])
+            ii_loc = ii_s.clamp(0, P - 1)
+            seg_sum, seg_cnt = self._agg_segments(model, net, ii_loc, valid,
+                                                  P)
+            edges = (target, weight, ii_loc, jj_s.clamp(0, P - 1), valid)
+            return net, edges, seg_sum, seg_cnt
+
+        out = mesh.map(gru, mesh.replicate_module(self.model), devs,
+                       range(mesh.size), fpyr_r, rep(v.poses),
+                       rep(v.disps), rep(v.intrinsics), rep(v.inps))
+        seg_sum = mesh.psum([o[2] for o in out])[0].to(home)
+        seg_cnt = mesh.psum([o[3] for o in out])[0].to(home)
+        eta, has_frame = self._agg_head(seg_sum, seg_cnt)
+        damping_w = torch.where(has_frame[:, None, None], eta,
+                                v.damping[:P])
+        v.damping[:P] = damping_w
+
+        poses_w, disps_w = sharded_ba.ba_shard_gn(
+            mesh, v.poses[:P], v.disps[:P], v.disps_sens[:P],
+            0.2 * damping_w + EPS_DAMP, v.intrinsics, [o[1] for o in out],
+            t0, t1, iters, lm, ep, max_deg)
+        v.poses[:P] = poses_w
+        v.disps[:P] = disps_w
+
+        for s, (net, (target, weight, *_), _, _) in enumerate(out):
+            keep = pad_ok[s]
+            dst = torch.as_tensor(sc[s][keep], device=home)
+            src = torch.as_tensor(np.nonzero(keep)[0], device=net.device)
+            self.net[dst] = net[src].to(home)
+            self.target[dst] = target[src].to(home)
+            self.weight[dst] = weight[src].to(home)
+
+    def _feature_pyramid(self, Tb):
+        """The alt-corr pyramid of the first Tb rig-flattened feature maps
+        (frame k's view r is map k * rig + r)."""
+        v = self.video
+        return corr.build_feature_pyramid(
+            v.fmaps[:Tb // v.rig].reshape(-1, self.h8, self.w8, 128))
+
+    def _gru_chunks(self, model, fpyr, poses, disps, intrinsics, inps, net,
+                    target, weight, ii, jj, ii_r, jj_r, valid, valid_np):
+        """The edge-chunked alt-corr GRU (the JAX package's
+        ``_gru_chunk_scan``) over the slabs net/target/weight [E, ...],
+        updated in place where valid: each chunk of ``self.chunk`` edges
+        is reprojected, looked up in the feature pyramid fpyr and run
+        through the update operator.  ii/jj are the endpoints (0 where
+        invalid), ii_r/jj_r their maps in fpyr, valid_np the host's copy
+        of valid: a chunk with no valid edge is skipped."""
+        cdt = self.cdt
+        for c0 in range(0, len(valid_np), self.chunk):
+            sl = slice(c0, c0 + self.chunk)
+            if not valid_np[sl].any():
+                continue           # nothing to update in this chunk
+            ii_ch, ok = ii[sl], valid[sl]
+            coords, _ = projective.transform(poses, disps, intrinsics,
+                                             ii_ch, jj[sl])
+            motion = self._motion_features(coords, target[sl])
+            corr_feat = corr.alt_corr(fpyr, coords, ii_r[sl], jj_r[sl])
+            net_c, delta_c, w_c = model.update(
+                net[sl].to(cdt), inps[ii_ch], corr_feat.to(cdt),
+                motion.to(cdt), dtype=cdt)
+            okm = ok[:, None, None, None]
+            net[sl] = torch.where(okm, net_c.to(net.dtype), net[sl])
+            target[sl] = torch.where(okm, coords + delta_c.float(),
+                                     target[sl])
+            weight[sl] = torch.where(
+                okm, w_c.float() * model.weight_calib, weight[sl])
+
+    def _agg_segments(self, model, nets, ii_loc, valid, P):
+        """GraphAgg's edge side over the slab nets [E, h8, w8, 128]: every
+        edge's final hidden state through the edge-side conv, summed in
+        fp32 per source frame, and the edge count per frame.  Returns
+        (seg_sum [P, h8, w8, 128], seg_cnt [P])."""
+        agg = model.update.agg
         okf = valid.float()
         seg_sum = torch.zeros((P, self.h8, self.w8, 128), dtype=torch.float32,
                               device=okf.device)
         seg_cnt = torch.zeros((P,), dtype=torch.float32,
                               device=okf.device).index_add_(0, ii_loc, okf)
-        for s0 in range(0, self.cap, AGG_BLOCK):
+        for s0 in range(0, nets.shape[0], AGG_BLOCK):
             sl = slice(s0, s0 + AGG_BLOCK)
-            ef = agg.edge_features(self.net[sl].to(self.cdt), self.cdt)
+            ef = agg.edge_features(nets[sl].to(self.cdt), self.cdt)
             seg_sum.index_add_(0, ii_loc[sl],
                                ef.float() * okf[sl][:, None, None, None])
+        return seg_sum, seg_cnt
+
+    def _agg_head(self, seg_sum, seg_cnt):
+        """Whole-graph GraphAgg's frame side: the segment mean through the
+        frame head, once.  Returns (eta [P,h8,w8] fp32, has_edge [P])."""
         mean = seg_sum / seg_cnt.clamp(min=1.0)[:, None, None, None]
-        eta, _ = agg.frame_head(mean, want_upmask=False)
+        eta, _ = self.model.update.agg.frame_head(mean, want_upmask=False)
         return eta.float(), seg_cnt > 0

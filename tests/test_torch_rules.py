@@ -31,7 +31,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "goslam_tpu"))
-print(json.dumps({"modules": len(names), "foreign": bad}))
+print(json.dumps({"modules": names, "foreign": bad}))
 """
 
 
@@ -41,8 +41,15 @@ def test_port_imports_no_jax_and_nothing_of_goslam_tpu():
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    # the package has some twenty modules; all of them were imported
-    assert res["modules"] >= 20
+    # the package has some forty modules; all of them were imported,
+    # the sharded paths, the viewer and the tools among them
+    assert len(res["modules"]) >= 40
+    assert {"goslam_tpu_torch.parallel",
+            "goslam_tpu_torch.parallel.sharded_ba",
+            "goslam_tpu_torch.parallel.sharded_mapping",
+            "goslam_tpu_torch.tools.meshvideo",
+            "goslam_tpu_torch.utils.visualization",
+            "goslam_tpu_torch.utils.logger"} <= set(res["modules"])
     assert res["foreign"] == []
 
 
@@ -89,23 +96,41 @@ def test_train_entry_point_needs_a_gpu_unless_asked(no_gpu, tmp_path):
     assert not os.path.exists(out)
 
 
-@pytest.mark.parametrize("what", ["make_video", "viz", "multichip"])
-def test_unported_paths_raise(what, tmp_path, monkeypatch):
-    """What the port does not have yet says so instead of running
-    something else: the mesh video, the live viewer, and mapping sharded
-    over more than one GPU."""
-    from goslam_tpu_torch.system import SLAMSystem
-    cfg = _cfg()
-    device = "cpu"
-    if what in ("make_video", "viz"):
-        cfg[what] = True
+@pytest.mark.parametrize("device,gpus,multichip,size", [
+    ("cuda", 4, True, 4), ("cuda", 1, True, None), ("cuda", 4, False, None),
+    ("cpu", 4, True, None)])
+def test_default_mesh_is_the_jax_packages(device, gpus, multichip, size,
+                                          monkeypatch):
+    """A system given no mesh builds one where the JAX package does: on
+    the GPU, with more than one visible and multichip on, over every GPU;
+    on one GPU, with multichip off, or on the CPU, none."""
+    from goslam_tpu_torch.system import default_mesh
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: gpus)
+    mesh = default_mesh(torch.device(device), {"multichip": multichip})
+    if size is None:
+        assert mesh is None
     else:
-        cfg["only_tracking"] = False
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        device = "cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SLAMSystem(cfg, output=str(tmp_path), device=device)
+        assert mesh.devices == [torch.device("cuda", i) for i in range(size)]
+
+
+@pytest.mark.parametrize("what", ["make_video", "viz", "mesh"])
+def test_former_unported_paths_build_a_system(what, tmp_path):
+    """The mesh video, the live viewer and a sharded system (the paths a
+    system refused before they were ported) build on the CPU."""
+    from goslam_tpu_torch.parallel import ShardMesh
+    from goslam_tpu_torch.system import SLAMSystem
+    cfg, mesh = _cfg(), None
+    cfg["only_tracking"] = False
+    if what == "mesh":
+        mesh = ShardMesh(["cpu"] * 2)
+    else:
+        cfg[what] = True
+    slam = SLAMSystem(cfg, output=str(tmp_path), device="cpu", mesh=mesh)
+    assert slam.make_video == (what == "make_video")
+    assert (slam.viewer is not None) == (what == "viz")
+    sharded = what == "mesh"
+    assert (slam.backend.mesh is mesh) and (slam.mapper.mesh is mesh)
+    assert (slam.mapper.sharded_step is not None) == sharded
 
 
 def test_loop_closing_config_builds_a_system(tmp_path):
