@@ -948,6 +948,21 @@ class SelfEdgeCounter:
         self.cls.update, self.cls.update_lowmem = self._orig
 
 
+def kernel_launches() -> dict:
+    """Each CUDA kernel's launches since the tracer's last reset: its
+    ``launch.<name>`` counter (``goslam_tpu_torch.utils.trace``)."""
+    from goslam_tpu_torch.ops import kernels
+    from goslam_tpu_torch.utils import trace
+    c = trace.counters()
+    return {n: c.get("launch." + n, 0) for n in kernels.SOURCES}
+
+
+def reset_kernel_launches():
+    """Zero the tracer's counters, the launch counts among them."""
+    from goslam_tpu_torch.utils import trace
+    trace.reset()
+
+
 def counting_mesh(shards):
     """A ShardMesh that also counts each shard's kernel launches: what
     ops/kernels.py's counts grew by while the mesh ran that shard's part
@@ -959,15 +974,15 @@ def counting_mesh(shards):
     class CountingMesh(ShardMesh):
         def __init__(self, devices):
             super().__init__(devices)
-            self.launches = [dict.fromkeys(kernels.LAUNCHES, 0)
+            self.launches = [dict.fromkeys(kernels.SOURCES, 0)
                              for _ in self.devices]
 
         def map(self, fn, *per_shard):
             out = []
             for s in range(self.size):
-                before = dict(kernels.LAUNCHES)
+                before = kernel_launches()
                 out.append(fn(*(a[s] for a in per_shard)))
-                for k, v in kernels.LAUNCHES.items():
+                for k, v in kernel_launches().items():
                     self.launches[s][k] += v - before[k]
             return out
 
@@ -1458,7 +1473,6 @@ def shard_vs_single(out_dir: str):
     graph's."""
     from goslam_tpu_torch.data.synthetic import Synthetic
     from goslam_tpu_torch.models.convert import load_checkpoint
-    from goslam_tpu_torch.ops import kernels
     from goslam_tpu_torch.system import SLAMSystem
 
     cfg = accuracy_config(128, 192)
@@ -1479,7 +1493,7 @@ def shard_vs_single(out_dir: str):
             getattr(v, k).copy_(t)
         mesh = counting_mesh(shards) if shards else None
         slam.backend.mesh = mesh
-        kernels.reset_launches()
+        reset_kernel_launches()
         with EdgeSplitRecorder() as split:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1488,7 +1502,7 @@ def shard_vs_single(out_dir: str):
         runs[key] = {
             "s": time.perf_counter() - t0, "counts": counts,
             "poses": v.poses[:n].clone(), "disps": v.disps[:n].clone(),
-            "launches": dict(kernels.LAUNCHES),
+            "launches": kernel_launches(),
             "launches_by_shard": mesh.launches if mesh else None,
             "devices": mesh.devices if mesh else None,
             "splits": split.splits}
@@ -1594,7 +1608,6 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     from goslam_tpu_torch.data.synthetic import Synthetic
     from goslam_tpu_torch.mapping import mesher
     from goslam_tpu_torch.models.convert import load_checkpoint
-    from goslam_tpu_torch.ops import kernels
     from goslam_tpu_torch.system import SLAMSystem
 
     make_cfg, gate, must_launch, min_keyframes = PATHS[name]
@@ -1651,7 +1664,7 @@ def run_path(name: str, out_dir: str, phases: bool = False,
     torch.cuda.reset_peak_memory_stats()
     with ShapeRecorder() as rec, SelfEdgeCounter() as self_edges, \
             EdgeSplitRecorder() as split:
-        kernels.reset_launches()
+        reset_kernel_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i, (img, depth, intr, gt) in enumerate(frames):
@@ -1662,7 +1675,7 @@ def run_path(name: str, out_dir: str, phases: bool = False,
         metrics = slam.terminate(stream=stream(), eval_mesh_path=gt_mesh)
         torch.cuda.synchronize()
         t_total = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = kernel_launches()
     if prof is not None:
         prof.__exit__(None, None, None)
     if timer is not None:
@@ -1999,7 +2012,6 @@ def train_path(out_dir: str, trace: bool = False):
     differentiates the plain edge system, so none); with `trace`, a few
     steps under torch.profiler."""
     from goslam_tpu_torch.models.droidnet import DroidNet
-    from goslam_tpu_torch.ops import kernels
     from goslam_tpu_torch.train import trainer as T
 
     os.makedirs(out_dir, exist_ok=True)
@@ -2033,13 +2045,13 @@ def train_path(out_dir: str, trace: bool = False):
     torch.cuda.reset_peak_memory_stats()
     T.Trainer.step = timed_step
     try:
-        kernels.reset_launches()
+        reset_kernel_launches()
         t0 = time.perf_counter()
         model = T.fit(run_cfg, ckpt, log_every=4, model=model,
                       device="cuda")
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = kernel_launches()
     finally:
         T.Trainer.step = step
     peak = torch.cuda.max_memory_allocated()

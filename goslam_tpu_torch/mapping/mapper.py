@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import lie
+from ..utils import trace
 from ..utils.shapes import bucket
 from .instant_neus import InstantNeuS, compute_sdf_losses
 from .renderer import build_ray_dirs, render_rays
@@ -284,8 +285,12 @@ class Mapper:
                 gc = torch.cat([gc, gc[:pad]])
                 gd = torch.cat([gd, gd.new_zeros(pad)])
             self.global_step += 1
-            metrics = self.train_step_ba(deltas, cam_opt, c2w_base, fo, dc,
-                                         gc, gd, bound, realtime_bound)
+            trace.add("mapper.steps")
+            trace.add("mapper.rays", R)
+            with trace.span("slam.map_step"):
+                metrics = self.train_step_ba(deltas, cam_opt, c2w_base, fo,
+                                             dc, gc, gd, bound,
+                                             realtime_bound)
         return metrics
 
     # ------------------------------------------------------------------
@@ -333,8 +338,11 @@ class Mapper:
         metrics = None
         for _ in range(iters):
             self.global_step += 1
-            metrics = step(rays_o, rays_d, gt_color, gt_depth, bound,
-                           realtime_bound)
+            trace.add("mapper.steps")
+            trace.add("mapper.rays", R)
+            with trace.span("slam.map_step"):
+                metrics = step(rays_o, rays_d, gt_color, gt_depth, bound,
+                               realtime_bound)
         return metrics
 
     # ------------------------------------------------------------------
@@ -354,10 +362,15 @@ class Mapper:
 
     def __call__(self, the_end: bool = False):
         """One mapping round; returns the last step's loss terms."""
+        with trace.span("slam.mapper"):
+            return self._round(the_end)
+
+    def _round(self, the_end: bool):
         video = self.video
         cur = video.filtered_id
         if cur <= 1:
             return None
+        trace.add("mapper.rounds")
 
         iters = self.iters * (10 if the_end else 1)
         bound = torch.as_tensor(video.bound, dtype=torch.float32,

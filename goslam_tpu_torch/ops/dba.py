@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import kernels, lie
 
 MIN_DEPTH = 0.25
@@ -631,8 +632,10 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
                                        device=dev).index_add_(0, jj, bx)
 
         if cg:
-            dx, _ = _cg_solve(rhs, (Hii, Hij, Hji, Hjj), Ei, Eij_m, Q, ii,
+            dx, k = _cg_solve(rhs, (Hii, Hij, Hji, Hjj), Ei, Eij_m, Q, ii,
                               jj, pm_f, lm, ep, cg_iters, plan, dx)
+            trace.add("pcg.solves")
+            trace.add("pcg.iters", k)
         else:
             dx = _dense_solve(rhs, assemble(Hii, Hij, Hji, Hjj, Ei, Eij_m, Q),
                               pm_f, lm, ep)

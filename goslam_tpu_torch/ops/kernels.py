@@ -7,9 +7,10 @@ all started together, into ``csrc/build/`` keyed on a hash of the source
 and the flags, so a changed source rebuilds and an unchanged one loads.
 
 Every launch function checks the C entry's ``cudaGetLastError()`` and
-adds one to ``LAUNCHES[name]``; that count is how a run shows that the
-main path went through the kernel.  Nothing here is imported or built on
-a machine without CUDA unless a kernel is actually launched.
+counts the launch in the tracer's ``launch.<name>`` (``utils.trace``,
+on or off); that count is how a run shows that the main path went
+through the kernel.  Nothing here is imported or built on a machine
+without CUDA unless a kernel is actually launched.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import subprocess
 from typing import Dict, List
 
 import torch
+
+from ..utils import trace
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -43,13 +46,7 @@ _ARGTYPES = {
     "schur_matvec": [_PTR] * 9 + [_INT] * 4 + [_PTR] * 4,
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -108,7 +105,7 @@ def _lib(name: str) -> ctypes.CDLL:
 def _check(name: str, err: int):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    trace.launch(name)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -4,6 +4,7 @@
         [--mode mono|stereo|rgbd] [--only_tracking] [--input_folder DIR]
         [--output DIR] [--max_frames N] [--stride N] [--image_size H W]
         [--calibration_txt FILE] [--resume go.ckpt] [--device cpu]
+        [--trace FILE]
 
 Loads the YAML config chain, writes it as ``config.yaml`` next to the
 outputs with a copy of this package's source (``code_backup/``), builds
@@ -20,7 +21,10 @@ mapping rounds, the meshes ``mesh/*.ply`` and, with
 mesh after every mapping round and, once the run ends, renders the
 meshes into ``mesh_video.mp4`` (``tools/meshvideo.py``, which needs
 matplotlib and OpenCV); ``--viz`` runs the headless live viewer, which
-writes ``pointcloud/*.ply``.
+writes ``pointcloud/*.ply``.  ``--trace FILE`` turns the port's tracer
+(``utils/trace.py``) on for the run and writes its spans and counters
+to FILE as a Chrome trace (chrome://tracing, Perfetto): every layer of
+every frame, set-up and ``terminate`` included, on the host's clock.
 """
 from __future__ import annotations
 
@@ -71,6 +75,9 @@ def main(argv=None):
                              "up to its last keyframe are skipped")
     parser.add_argument("--device", default=None,
                         help="default: the GPU (cuda)")
+    parser.add_argument("--trace", default=None, metavar="FILE",
+                        help="trace the run's layers and write them to "
+                             "FILE as a Chrome trace")
     args = parser.parse_args(argv)
 
     setup_seed(43)
@@ -79,6 +86,7 @@ def main(argv=None):
     from .data.datasets import get_dataset
     from .mapping import mesher as M
     from .system import SLAMSystem
+    from .utils import trace
 
     cfg = load_config(args.config)
     if args.mode:
@@ -118,6 +126,9 @@ def main(argv=None):
         if dataset.timestamps is not None \
         else np.arange(n_frames, dtype=np.float64)
 
+    if args.trace:
+        trace.reset()
+        trace.enable()
     slam = SLAMSystem(cfg, output=output,
                       only_tracking=cfg.get("only_tracking", False),
                       device=args.device)
@@ -154,6 +165,11 @@ def main(argv=None):
 
     metrics = slam.terminate(stream=frames(0), eval_mesh_path=gt_mesh_path)
     print(json.dumps(metrics, indent=2, default=str))
+    if args.trace:
+        trace.disable()
+        trace.write_chrome(args.trace)
+        print(f"trace: {len(trace.records())} spans, counters "
+              f"{trace.counters()} -> {args.trace}")
     if args.make_video:
         from .tools.meshvideo import make_video
         make_video(output)

@@ -61,7 +61,7 @@ from .tracking.motion_filter import MotionFilter
 from .tracking.multiview_filter import MultiviewFilter
 from .tracking.trajectory_filler import TrajectoryFiller
 from .tracking.video import VideoBuffer
-from .utils import evaluate
+from .utils import evaluate, trace
 from .utils.obb import OrientedBoundingBox
 from .utils.visualization import LiveViewer
 
@@ -103,6 +103,12 @@ class SLAMSystem:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  output: Optional[str] = None, only_tracking: bool = False,
                  device=None, mesh: Optional[ShardMesh] = None):
+        trace.at_frame(0)
+        with trace.span("slam.build"):
+            self._build(cfg, state_dict, output, only_tracking, device,
+                        mesh)
+
+    def _build(self, cfg, state_dict, output, only_tracking, device, mesh):
         self.cfg = cfg or default_config()
         self.device = resolve_device(device)
         cam = self.cfg["cam"]
@@ -122,34 +128,39 @@ class SLAMSystem:
         self.output = output or self.cfg["data"].get("output", "") or "output"
         os.makedirs(self.output, exist_ok=True)
 
-        pre = tr.get("pretrained", "")
-        if state_dict is None and pre and os.path.exists(pre):
-            state_dict = load_checkpoint(pre)
-        if state_dict is None:
-            net = init_droidnet()
-        else:
-            net = DroidNet()
-            net.load_state_dict(state_dict)
-        net.weight_calib.fill_(float(tr.get("weight_calib", 1.0)))
-        self.net = net.to(self.device).eval()
+        with trace.span("slam.build_net"):
+            pre = tr.get("pretrained", "")
+            if state_dict is None and pre and os.path.exists(pre):
+                state_dict = load_checkpoint(pre)
+            if state_dict is None:
+                net = init_droidnet()
+            else:
+                net = DroidNet()
+                net.load_state_dict(state_dict)
+            net.weight_calib.fill_(float(tr.get("weight_calib", 1.0)))
+            self.net = net.to(self.device).eval()
 
-        self.video = VideoBuffer(tr["buffer"], cam["H_out"], cam["W_out"],
-                                 self.device, stereo=self.mode == "stereo")
-        self.motion_filter = MotionFilter(self.net, self.video,
-                                          thresh=tr["motion_filter"]["thresh"])
-        self.backend = Backend(self.net, self.video, self.cfg,
-                               mesh=self.mesh)
-        self.frontend = Frontend(self.net, self.video, self.cfg,
-                                 loop_closing=self.backend)
-        self.traj_filler = TrajectoryFiller(self.net, self.video,
-                                            self.motion_filter)
+        with trace.span("slam.build_video"):
+            self.video = VideoBuffer(tr["buffer"], cam["H_out"],
+                                     cam["W_out"], self.device,
+                                     stereo=self.mode == "stereo")
+        with trace.span("slam.build_tracker"):
+            self.motion_filter = MotionFilter(
+                self.net, self.video, thresh=tr["motion_filter"]["thresh"])
+            self.backend = Backend(self.net, self.video, self.cfg,
+                                   mesh=self.mesh)
+            self.frontend = Frontend(self.net, self.video, self.cfg,
+                                     loop_closing=self.backend)
+            self.traj_filler = TrajectoryFiller(self.net, self.video,
+                                                self.motion_filter)
 
         if self.only_tracking:
             self.multiview_filter = self.mapper = None
         else:
-            self.multiview_filter = MultiviewFilter(self.video, self.cfg,
-                                                    warmup=tr["warmup"])
-            self.mapper = Mapper(self.video, self.cfg, mesh=self.mesh)
+            with trace.span("slam.build_mapper"):
+                self.multiview_filter = MultiviewFilter(
+                    self.video, self.cfg, warmup=tr["warmup"])
+                self.mapper = Mapper(self.video, self.cfg, mesh=self.mesh)
 
         self.global_ba_every = tr.get("global_ba_every", 10)
         self.mapping_every = self.cfg["mapping"].get("mapping_every", 5)
@@ -176,19 +187,28 @@ class SLAMSystem:
         full resolution, gt_pose a 4x4 c2w or None.  Returns the list of
         admit decisions this call produced (one entry)."""
         self.frame_count += 1
-        img = np.asarray(image)
-        if img.ndim != 4 or img.shape[0] != self.video.rig:
-            raise ValueError(f"mode {self.mode}: image of shape "
-                             f"[{self.video.rig}, ht, wd, 3] expected, got "
-                             f"{list(img.shape)}")
-        if img.dtype != np.uint8:
-            img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
-        img = torch.as_tensor(img, device=self.device).float() / 255.0
-        dep = None
-        if depth is not None:
-            dep = torch.as_tensor(np.asarray(depth).astype(np.float16),
-                                  device=self.device).float()
-        return [self._drain_one(timestamp, img, dep, intrinsics, gt_pose)]
+        trace.at_frame(self.frame_count)
+        trace.add("frames")
+        with trace.span("slam.track"):
+            with trace.span("slam.ingest"):
+                img = np.asarray(image)
+                if img.ndim != 4 or img.shape[0] != self.video.rig:
+                    raise ValueError(
+                        f"mode {self.mode}: image of shape "
+                        f"[{self.video.rig}, ht, wd, 3] expected, got "
+                        f"{list(img.shape)}")
+                if img.dtype != np.uint8:
+                    img = np.clip(img * 255.0 + 0.5, 0, 255).astype(
+                        np.uint8)
+                img = torch.as_tensor(img, device=self.device).float() \
+                    / 255.0
+                dep = None
+                if depth is not None:
+                    dep = torch.as_tensor(
+                        np.asarray(depth).astype(np.float16),
+                        device=self.device).float()
+            return [self._drain_one(timestamp, img, dep, intrinsics,
+                                    gt_pose)]
 
     def _drain_one(self, timestamp, img, dep, intrinsics, gt_pose) -> bool:
         """Motion filter, frontend and, every `global_ba_every` keyframes,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import trace
 from ..utils.greedy import greedy_nms_scan
 from .factor_graph import FactorGraph, resolve_dtype
 from .video import VideoBuffer
@@ -135,12 +136,13 @@ class Backend:
             t_start_loop = t_start
         if t_start_loop < t_start:
             raise ValueError("t_start_loop must not lie before t_start")
-        es = self._propose_edges(t_start, t_end, t_start_loop, radius, nms,
-                                 thresh, max_factors, loop, [])
-        if len(es) < 3:
-            return 0
-        ii, jj = np.asarray(sorted(set(es)), np.int64).T
-        graph.add_factors(ii, jj, remove=True)
+        with trace.span("slam.propose"):
+            es = self._propose_edges(t_start, t_end, t_start_loop, radius,
+                                     nms, thresh, max_factors, loop, [])
+            if len(es) < 3:
+                return 0
+            ii, jj = np.asarray(sorted(set(es)), np.int64).T
+            graph.add_factors(ii, jj, remove=True)
         edge_num = graph.n_edges()
         # the dense damping regime (lm=1e-5, ep=1e-2) even for loop
         # closing, as in the JAX package
@@ -164,10 +166,13 @@ class Backend:
         n = t_end - t_start
         max_factors = (int(self.video.stereo)
                        + (self.backend_radius + 2) * 2) * n
-        n_edges = self.ba(t_start, t_end, steps, self._graph(max_factors),
-                          self.backend_nms, self.backend_radius,
-                          self.backend_thresh, max_factors,
-                          motion_only=motion_only)
+        with trace.span("slam.global_ba"):
+            n_edges = self.ba(t_start, t_end, steps,
+                              self._graph(max_factors), self.backend_nms,
+                              self.backend_radius, self.backend_thresh,
+                              max_factors, motion_only=motion_only)
+        trace.add("global_ba.calls")
+        trace.add("global_ba.edges", n_edges)
         return n, n_edges
 
     @torch.no_grad()
@@ -178,6 +183,14 @@ class Backend:
         the live edges of `local_graph` (the frontend's): endpoints and
         ages on the host, hidden states, targets and weights on the
         device.  Returns (window length, number of edges)."""
+        with trace.span("slam.loop_closing"):
+            window, n_edges = self._loop_ba(t_start, t_end, steps,
+                                            motion_only, local_graph)
+        trace.add("loop_closing.calls")
+        trace.add("loop_closing.edges", n_edges)
+        return window, n_edges
+
+    def _loop_ba(self, t_start, t_end, steps, motion_only, local_graph):
         max_factors = 8 * self.backend_loop_window
         t_start_loop = max(0, t_end - self.backend_loop_window)
         self.last_loop_accepts = 0

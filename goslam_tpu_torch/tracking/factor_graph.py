@@ -35,6 +35,7 @@ import torch
 from ..models.droidnet import upsample_disp
 from ..ops import corr, dba, projective
 from ..parallel import sharded_ba
+from ..utils import trace
 from ..utils.greedy import greedy_nms_scan
 from ..utils.shapes import bucket
 from .video import VideoBuffer
@@ -329,6 +330,15 @@ class FactorGraph:
         device work of its ``_update_kernel``, in place."""
         if not self.valid.any():
             return
+        if trace.ON:
+            trace.add("update.calls")
+            trace.add("update.edges", self.n_edges())
+        with trace.span("slam.update"):
+            self._update(t0, t1, iters, use_inactive, motion_only, ba_lm,
+                         ba_ep)
+
+    def _update(self, t0, t1, iters, use_inactive, motion_only, ba_lm,
+                ba_ep):
         vi, vj = self.ii[self.valid], self.jj[self.valid]
         if t0 is None:
             t0 = max(1, int(vi.min()) + 1)
@@ -417,6 +427,16 @@ class FactorGraph:
         """steps x (edge-chunked alt-corr GRU + full-window BA)."""
         if not self.valid.any():
             return
+        if trace.ON:
+            trace.add("update_lowmem.calls")
+            trace.add("update_lowmem.edges", self.n_edges())
+            trace.add("update_lowmem.steps", steps)
+        with trace.span("slam.update_lowmem"):
+            self._update_lowmem(t0, t1, iters, steps, max_t, ba_type,
+                                motion_only)
+
+    def _update_lowmem(self, t0, t1, iters, steps, max_t, ba_type,
+                       motion_only):
         vi, vj = self.ii[self.valid], self.jj[self.valid]
         if t0 is None:
             t0 = max(1, int(vi.min()) + 1)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .factor_graph import FactorGraph, resolve_dtype
 from .video import VideoBuffer
 
@@ -47,14 +48,15 @@ class Frontend:
         self.t0 = 0
         self.t1 = 0
         self.is_initialized = False
-        self.count = 0
 
     @torch.no_grad()
     def __call__(self):
         if not self.is_initialized and self.video.counter == self.warmup:
-            self._initialize()
+            with trace.span("slam.frontend"):
+                self._initialize()
         elif self.is_initialized and self.t1 < self.video.counter:
-            self._update()
+            with trace.span("slam.frontend"):
+                self._update()
 
     def _seed_next(self, mean_rows: int):
         """Extrapolate keyframe t1 from the previous one: its pose, and
@@ -75,13 +77,15 @@ class Frontend:
         self.t0 = 0
         self.t1 = self.video.counter
 
-        self.graph.add_neighborhood_factors(self.t0, self.t1, r=3)
+        with trace.span("slam.propose"):
+            self.graph.add_neighborhood_factors(self.t0, self.t1, r=3)
         for _ in range(8):
             self.graph.update(t0=1, use_inactive=True)
 
-        self.graph.add_proximity_factors(t0=0, t1=0, rad=2, nms=2,
-                                         thresh=self.frontend_thresh,
-                                         remove=False)
+        with trace.span("slam.propose"):
+            self.graph.add_proximity_factors(t0=0, t1=0, rad=2, nms=2,
+                                             thresh=self.frontend_thresh,
+                                             remove=False)
         for _ in range(8):
             self.graph.update(t0=1, use_inactive=True)
 
@@ -92,16 +96,16 @@ class Frontend:
             self.graph.valid & (self.graph.ii < self.warmup - 4), store=True)
 
     def _update(self):
-        self.count += 1
         self.t1 += 1
 
         self.graph.rm_factors(
             self.graph.valid & (self.graph.age > self.max_age), store=True)
 
-        self.graph.add_proximity_factors(
-            max(self.t1 - 5, 0), max(self.t1 - self.frontend_window, 0),
-            rad=self.frontend_radius, nms=self.frontend_nms,
-            thresh=self.frontend_thresh, beta=self.beta, remove=True)
+        with trace.span("slam.propose"):
+            self.graph.add_proximity_factors(
+                max(self.t1 - 5, 0), max(self.t1 - self.frontend_window, 0),
+                rad=self.frontend_radius, nms=self.frontend_nms,
+                thresh=self.frontend_thresh, beta=self.beta, remove=True)
 
         # the new keyframe's disparity starts from sensor depth where
         # there is one
@@ -112,11 +116,13 @@ class Frontend:
         for _ in range(self.iters1):
             self.graph.update(use_inactive=True)
 
-        d = float(self.video.distance([self.t1 - 3], [self.t1 - 2],
-                                      beta=self.beta)[0])
+        with trace.span("slam.keyframe_test"):
+            d = float(self.video.distance([self.t1 - 3], [self.t1 - 2],
+                                          beta=self.beta)[0])
         if d < self.keyframe_thresh:
             self.graph.rm_keyframe(self.t1 - 2)
             self.t1 -= 1
+            trace.add("keyframes_removed")
         elif (self.enable_loop and self.loop_closing is not None
               and self.video.counter > self.frontend_window):
             cur_t = self.video.counter

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import corr, lie, projective
+from ..utils import trace
 from .video import VideoBuffer
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -35,7 +36,6 @@ class MotionFilter:
         self.model = net
         self.video = video
         self.thresh = thresh
-        self.count = 0
         self._seen_first = False
         self.dtype = torch.bfloat16
 
@@ -59,38 +59,44 @@ class MotionFilter:
         image [rig, ht, wd, 3] in [0, 1] and depth [ht, wd] (or None, as
         in mono and stereo) are tensors on the video's device; intrinsics
         [4] at full resolution."""
+        with trace.span("slam.motion_filter"):
+            return self._track(timestamp, image, depth, intrinsics, gt_pose)
+
+    def _track(self, timestamp, image, depth, intrinsics, gt_pose) -> bool:
         first = not self._seen_first
         self._seen_first = True
-        x = normalize_images(image)
-        gmap = self.model.fnet(x, self.dtype)
-        ctx_net, ctx_inp = self.model.encode_context(x[:1], self.dtype)
+        with trace.span("slam.encode"):
+            x = normalize_images(image)
+            gmap = self.model.fnet(x, self.dtype)
+            ctx_net, ctx_inp = self.model.encode_context(x[:1], self.dtype)
 
         # one update iteration at zero flow against the last keyframe
-        levels = corr.build_pyramid(self.fmap[:1], gmap[:1])
-        h8, w8 = self.video.h8, self.video.w8
-        coords0 = projective.coords_grid(h8, w8, image.device)[None]
-        c = corr.lookup(levels, coords0)
-        _, delta, _ = self.model.update(self.net, self.inp, c,
-                                        dtype=self.dtype)
-        mag = torch.linalg.norm(delta.float(), dim=-1).mean()
+        with trace.span("slam.flow"):
+            levels = corr.build_pyramid(self.fmap[:1], gmap[:1])
+            h8, w8 = self.video.h8, self.video.w8
+            coords0 = projective.coords_grid(h8, w8, image.device)[None]
+            c = corr.lookup(levels, coords0)
+            _, delta, _ = self.model.update(self.net, self.inp, c,
+                                            dtype=self.dtype)
+            mag = torch.linalg.norm(delta.float(), dim=-1).mean()
 
-        if not (first or float(mag) > self.thresh):
-            self.count += 1
-            return False
-        self.count = 0
-        self.fmap = gmap.float()
-        self.net = ctx_net.float()
-        self.inp = ctx_inp.float()
+        with trace.span("slam.admit"):
+            if not (first or float(mag) > self.thresh):
+                return False
+            trace.add("keyframes")
+            self.fmap = gmap.float()
+            self.net = ctx_net.float()
+            self.inp = ctx_inp.float()
 
-        intr = None
-        if intrinsics is not None:
-            intr = torch.as_tensor(intrinsics, dtype=torch.float32,
-                                   device=image.device) \
-                / float(self.video.device_scale)
-        pose = lie.identity(device=image.device) if first else None
-        disp = 1.0 if first else None
-        gt = None if gt_pose is None else torch.as_tensor(
-            gt_pose, dtype=torch.float32, device=image.device)
-        self.video.append(timestamp, pose, disp, depth, intr, gmap,
-                          ctx_net[0], ctx_inp[0], gt, image=image[0])
-        return True
+            intr = None
+            if intrinsics is not None:
+                intr = torch.as_tensor(intrinsics, dtype=torch.float32,
+                                       device=image.device) \
+                    / float(self.video.device_scale)
+            pose = lie.identity(device=image.device) if first else None
+            disp = 1.0 if first else None
+            gt = None if gt_pose is None else torch.as_tensor(
+                gt_pose, dtype=torch.float32, device=image.device)
+            self.video.append(timestamp, pose, disp, depth, intr, gmap,
+                              ctx_net[0], ctx_inp[0], gt, image=image[0])
+            return True

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import lie, projective
+from ..utils import trace
 from ..utils.shapes import bucket
 from .video import VideoBuffer
 
@@ -103,6 +104,10 @@ class MultiviewFilter:
     @torch.no_grad()
     def __call__(self) -> bool:
         """One filter pass; True when it published new filtered state."""
+        with trace.span("slam.multiview_filter"):
+            return self._publish()
+
+    def _publish(self) -> bool:
         video = self.video
         cur_t = video.counter
         if video.filtered_id >= cur_t or cur_t <= self.warmup:

@@ -49,7 +49,7 @@ def test_port_imports_no_jax_and_nothing_of_goslam_tpu():
             "goslam_tpu_torch.parallel.sharded_mapping",
             "goslam_tpu_torch.tools.meshvideo",
             "goslam_tpu_torch.utils.visualization",
-            "goslam_tpu_torch.utils.logger"} <= set(res["modules"])
+            "goslam_tpu_torch.utils.trace"} <= set(res["modules"])
     assert res["foreign"] == []
 
 
