@@ -874,23 +874,54 @@ def memory_held(by_site: bool) -> dict:
 class ShapeRecorder:
     """Counts the shapes each kernel is launched at while installed: the
     launch functions of ops/kernels.py are wrapped for the duration of
-    one run and restored after it.  For the Schur matvec it also keeps
-    the largest number of valid edges seen at each shape (one scalar read
-    from the device per launch)."""
+    one run and restored after it.  A launch captured into a CUDA graph
+    (the frontend's update step, tracking/factor_graph.py) counts at each
+    of the graph's replays and not at its capture.  For the Schur matvec
+    it also keeps the largest number of valid edges seen at each shape
+    (one scalar read from the device per launch)."""
 
     def __init__(self):
         from goslam_tpu_torch.ops import kernels
+        from goslam_tpu_torch.tracking import factor_graph
         self.kernels = kernels
+        self.steps = factor_graph._StepGraphs
         self.shapes = {"edge_system": {}, "alt_corr": {}, "schur_matvec": {}}
         self.schur_valid = {}
+        self._made = {}             # id(CUDAGraph) -> [(name, key)] captured
 
-    def _count(self, name, key):
-        self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
+    def _count(self, name, key, n=1):
+        self.shapes[name][key] = self.shapes[name].get(key, 0) + n
+
+    def _counted(self):
+        return [(name, key, n) for name, d in self.shapes.items()
+                for key, n in d.items()]
 
     def __enter__(self):
         k = self.kernels
         self._orig = (k.edge_system, k.alt_corr, k.schur_matvec)
         es, ac, sm = self._orig
+        self._orig_graph = (self.steps._capture, torch.cuda.CUDAGraph.replay)
+        capture, replay = self._orig_graph
+        rec = self
+
+        def captured(steps, step):
+            before = {(name, key): n for name, key, n in rec._counted()}
+            graph = capture(steps, step)
+            made = [(name, key, n - before.get((name, key), 0))
+                    for name, key, n in rec._counted()
+                    if n != before.get((name, key), 0)]
+            for name, key, n in made:
+                rec._count(name, key, -n)
+            rec._made[id(graph)] = (graph, made)
+            return graph
+
+        def replayed(graph):
+            replay(graph)
+            for name, key, n in rec._made.get(id(graph), (None, ()))[1]:
+                rec._count(name, key, n)
+
+        self.steps._capture = captured
+        torch.cuda.CUDAGraph.replay = replayed
 
         def edge_system(poses, disps, intr, target, *rest):
             self._count("edge_system", (target.shape[0],           # (E, hw)
@@ -916,6 +947,7 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         k = self.kernels
         k.edge_system, k.alt_corr, k.schur_matvec = self._orig
+        self.steps._capture, torch.cuda.CUDAGraph.replay = self._orig_graph
 
 
 class SelfEdgeCounter:
@@ -1056,10 +1088,13 @@ def sync_sites(fn):
 
 def count_syncs(slam):
     """The host synchronizations left in one frontend step
-    (FactorGraph.update, as the frontend calls it) and in the one dba.ba
-    call inside it, replayed on copies of its arguments."""
+    (FactorGraph.update, as the frontend calls it: a CUDA-graph replay
+    once its shape was seen) and in the dba.ba call of one eager step,
+    replayed on copies of its arguments."""
     from goslam_tpu_torch.ops import dba
     graph = slam.frontend.graph
+    n_step, step_sites = sync_sites(
+        lambda: graph.update(use_inactive=True))
     captured = []
     ba = dba.ba
 
@@ -1068,12 +1103,16 @@ def count_syncs(slam):
                           for x in a], dict(k)))
         return ba(*a, **k)
 
+    # a graph that has seen no shape runs its next step eagerly
+    steps = graph._steps
+    kept = steps.graphs, steps.seen
+    steps.graphs, steps.seen = {}, set()
     dba.ba = recording_ba
     try:
-        n_step, step_sites = sync_sites(
-            lambda: graph.update(use_inactive=True))
+        graph.update(use_inactive=True)
     finally:
         dba.ba = ba
+        steps.graphs, steps.seen = kept
     a, k = captured[-1]
     n_ba, ba_sites = sync_sites(lambda: dba.ba(*a, **k))
     return {"frontend_update": {"count": n_step, "sites": step_sites},

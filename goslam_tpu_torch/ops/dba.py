@@ -36,14 +36,12 @@ from typing import NamedTuple
 import torch
 
 from ..utils import trace
-from . import kernels, lie
+from . import kernels, lie, projective
 
 MIN_DEPTH = 0.25
 ALPHA_RGBD = 0.05
 WEIGHT_SCALE = 0.001
 DISP_MIN = 0.001
-
-_STEREO_BASELINE = (-0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0)
 
 
 class EdgeSystem(NamedTuple):
@@ -54,14 +52,6 @@ class EdgeSystem(NamedTuple):
     Eij: torch.Tensor    # [E, 6, hw] pose-j / depth-i coupling
     Cii: torch.Tensor    # [E, hw] depth-depth diagonal
     bz: torch.Tensor     # [E, hw] depth rhs
-
-
-def _edge_transforms(poses, ii, jj):
-    """Gij per edge with the stereo baseline, and the stereo flag."""
-    Gij = lie.rel(poses[ii], poses[jj])
-    stereo = ii == jj
-    Gij = torch.where(stereo[:, None], Gij.new_tensor(_STEREO_BASELINE), Gij)
-    return Gij, stereo
 
 
 def _adjT_cols(pose, J):
@@ -105,7 +95,7 @@ def build_edge_system_plain(poses, disps, intrinsics, target, weight, ii, jj,
     u = torch.arange(wd, dtype=torch.float32, device=dev).repeat(ht)[None]
     v_pix = torch.arange(ht, dtype=torch.float32,
                          device=dev).repeat_interleave(wd)[None]
-    Gij, stereo = _edge_transforms(poses, ii, jj)
+    Gij, stereo = projective.rel_poses(poses, ii, jj), ii == jj
 
     Xi = torch.stack([((u - cx) / fx).expand(E, hw),
                       ((v_pix - cy) / fy).expand(E, hw),
@@ -477,37 +467,41 @@ def _cg_solve(rhs, Hblocks, Ei, Eij_m, Q, ii, jj, pm_f, lm: float,
 
 
 def ba(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
-       valid, t0: int, t1: int, iters: int = 2, lm: float = 1e-4,
+       valid, t0, t1, iters: int = 2, lm: float = 1e-4,
        ep: float = 0.1, motion_only: bool = False, max_deg: int = 24,
        solver: str = "chol", cg_iters: int = 64,
-       fused: bool | None = None):
+       fused: bool | None = None, deg: int | None = None):
     """Run `iters` Gauss-Newton steps of dense bundle adjustment.
 
     poses [P, 7]; disps/disps_sens/eta [P, ht, wd]; target/weight
     [E, ht, wd, 2]; ii/jj [E] window-local; valid [E] bool.  Poses in
-    [t0, t1) are optimized.  ``solver`` is "chol" (dense damped Cholesky)
-    or "cg" (matrix-free PCG, at most ``cg_iters`` iterations per
-    Gauss-Newton step).  ``fused`` picks the edge system: None the
-    device's (``build_edge_system``: the kernel on CUDA, the plain version
-    on the CPU), False the plain version on every device, which autograd
-    differentiates (the trainer's choice).  Returns (poses, disps).
+    [t0, t1) are optimized; t0 and t1 are ints or 0-d integer tensors on
+    the device (a CUDA graph's inputs).  ``solver`` is "chol" (dense
+    damped Cholesky) or "cg" (matrix-free PCG, at most ``cg_iters``
+    iterations per Gauss-Newton step).  ``fused`` picks the edge system:
+    None the device's (``build_edge_system``: the kernel on CUDA, the
+    plain version on the CPU), False the plain version on every device,
+    which autograd differentiates (the trainer's choice).  Returns
+    (poses, disps).
 
     The per-source edge degree must fit the table capacity max_deg: it is
     checked here on the host (callers bucket max_deg from the true
-    degree); ``_ba_impl`` itself poisons its outputs with NaN on a table
-    overflow.
+    degree).  ``deg`` is that degree (the most valid edges of one source
+    frame in ii) where the caller has it on the host, as the factor
+    graph does; without it the check reads the device, a synchronize.
+    ``_ba_impl`` itself poisons its outputs with NaN on a table overflow.
     """
     if solver not in ("chol", "cg"):
         raise ValueError(f"solver must be 'chol' or 'cg', got {solver!r}")
     if fused not in (None, False):
         raise ValueError(f"fused must be None or False, got {fused!r}")
-    if bool(valid.any()):
+    if deg is None and bool(valid.any()):
         deg = int(torch.bincount(ii[valid]).max())
-        if deg > max_deg:
-            raise ValueError(
-                f"per-source edge degree {deg} exceeds the table capacity "
-                f"max_deg={max_deg}; bucket max_deg from the true degree "
-                f"(utils.shapes.bucket) before calling ba()")
+    if deg is not None and deg > max_deg:
+        raise ValueError(
+            f"per-source edge degree {deg} exceeds the table capacity "
+            f"max_deg={max_deg}; bucket max_deg from the true degree "
+            f"(utils.shapes.bucket) before calling ba()")
     return _ba_impl(poses, disps, intrinsics, disps_sens, target, weight,
                     eta, ii, jj, valid, t0, t1, iters, lm, ep, motion_only,
                     max_deg, solver, cg_iters, fused)
@@ -652,5 +646,5 @@ def _ba_impl(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
     # an overflow of the degree-capped table would silently drop edges:
     # poison the outputs so every finiteness check trips
     bad = overflow > 0
-    nan = torch.tensor(float("nan"), device=dev)
+    nan = torch.full((), float("nan"), device=dev)
     return torch.where(bad, nan, poses), torch.where(bad, nan, disps)

@@ -13,9 +13,27 @@ finite (and differentiable) at the identity.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _EPS_TAYLOR = 1e-8  # theta^2 threshold below which Taylor expansions kick in
+_QUAT_CONJ = (-1.0, -1.0, -1.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values: tuple, like: torch.Tensor) -> torch.Tensor:
+    """`values` as a tensor on `like`'s device in its dtype, uploaded once
+    per device and dtype and shared by every caller, who never writes
+    it: a constant costs no host-to-device copy after the first (a copy
+    from pageable memory synchronizes, and a CUDA-graph capture refuses
+    one).  The cache holds one tensor per constant, device and dtype."""
+    return _constant(values, like.device, like.dtype)
 
 
 def identity(shape=(), device=None) -> torch.Tensor:
@@ -39,7 +57,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
     """Conjugate (== inverse for unit quaternions)."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return q * constant(_QUAT_CONJ, q)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -59,8 +59,8 @@ def rel_poses(poses: torch.Tensor, ii: torch.Tensor,
               jj: torch.Tensor) -> torch.Tensor:
     """Per-edge G_ij = G_jj . G_ii^-1, the stereo baseline where ii == jj."""
     Gij = lie.rel(poses[ii], poses[jj])
-    base = Gij.new_tensor(_STEREO_BASELINE)
-    return torch.where((ii == jj)[:, None], base, Gij)
+    return torch.where((ii == jj)[:, None],
+                       lie.constant(_STEREO_BASELINE, Gij), Gij)
 
 
 def transform(poses: torch.Tensor, disps: torch.Tensor,

@@ -20,6 +20,18 @@ step of global BA shards its edges over the mesh by source frame
 Slots are updated in place.  Edges are computed over every slot and
 masked by validity, so results do not depend on which slots are free.
 
+The update step's device work has static shapes: every edge slot, and a
+window of P frames read and written at ``base + arange(P)``, ``base`` a
+device scalar.  Its kernels and shapes depend only on the key (P, the
+degree bucket, iters, motion_only, use_inactive, lm, ep); everything
+else is data, which the host stages in one pinned buffer and copies to
+the device at once.  The step writes its results into the graph's and
+the video's own tensors.  So on CUDA a key seen once before is captured
+into a ``torch.cuda.CUDAGraph`` and replayed from then on: one launch
+instead of the step's few hundred.  The first sighting of a key runs
+eagerly, which warms the libraries and the allocator; the CPU always
+runs eagerly, through the same function.
+
 Index hygiene: invalid slots carry stale endpoints, so endpoints are
 zeroed where a slot is invalid before any gather, and window-local
 indices are clamped into [0, P) -- the JAX gathers clamp silently, a torch
@@ -115,6 +127,10 @@ class FactorGraph:
                 torch.zeros((cap, hw, h8 // 2 ** l, w8 // 2 ** l),
                             dtype=torch.bfloat16, device=dev)
                 for l in range(corr.NUM_LEVELS)]
+
+        # the update step's input buffers and CUDA graphs, made at its first
+        # call (``_stage``)
+        self._steps: Optional[_StepGraphs] = None
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.video.device)
@@ -292,24 +308,27 @@ class FactorGraph:
         motion = torch.cat([coords1 - grid, target - coords1], dim=-1)
         return motion.clamp(-MOTION_CLAMP, MOTION_CLAMP)
 
-    def _max_deg(self, ii_src) -> int:
-        deg = int(np.bincount(ii_src).max()) if len(ii_src) else 1
-        return bucket(deg, DEG_BUCKETS)
+    def _max_deg(self, ii_local):
+        """(deg, its bucket): the most valid edges of one source frame,
+        from the window-local source indices of the valid edges as DBA
+        will count them, and the degree table's capacity."""
+        deg = int(np.bincount(ii_local).max()) if len(ii_local) else 0
+        return deg, bucket(max(deg, 1), DEG_BUCKETS)
 
-    def _window_ba(self, P, base, damping_w, ii_ba, jj_ba, tg, wt, ok,
-                   t0, t1, iters, lm, ep, motion_only, max_deg,
-                   solver="chol"):
-        """DBA over window [base, base + P) of the video, in place."""
+    def _window_ba(self, win, damping_w, ii_ba, jj_ba, tg, wt, ok, t0, t1,
+                   iters, lm, ep, motion_only, max_deg, deg, solver="chol"):
+        """DBA over the window of the video at frames ``win`` (a [P] index
+        on the device; t0/t1 window-local), in place."""
         v = self.video
-        win = slice(base, base + P)
         eta = 0.2 * damping_w + EPS_DAMP
         poses_w, disps_w = dba.ba(
-            v.poses[win], v.disps[win], v.intrinsics, v.disps_sens[win],
-            tg, wt, eta, ii_ba, jj_ba, ok, t0 - base, t1 - base,
-            iters=iters, lm=lm, ep=ep, motion_only=motion_only,
-            max_deg=max_deg, solver=solver, cg_iters=CG_ITERS)
-        v.poses[win] = poses_w
-        v.disps[win] = disps_w
+            v.poses.index_select(0, win), v.disps.index_select(0, win),
+            v.intrinsics, v.disps_sens.index_select(0, win), tg, wt, eta,
+            ii_ba, jj_ba, ok, t0, t1, iters=iters, lm=lm, ep=ep,
+            motion_only=motion_only, max_deg=max_deg, solver=solver,
+            cg_iters=CG_ITERS, deg=deg)
+        v.poses.index_copy_(0, win, poses_w)
+        v.disps.index_copy_(0, win, disps_w)
         return disps_w
 
     def _window_base(self, base: int, P: int) -> int:
@@ -360,14 +379,46 @@ class FactorGraph:
         base = self._window_base(base, P)
 
         ii_all = np.concatenate([vi, self.ii_inac[inac_ok]])
-        max_deg = self._max_deg(ii_all)
+        deg, max_deg = self._max_deg(np.clip(ii_all - base, 0, P - 1))
 
+        self._stage(inac_ok, base, t0, t1)
+        self._steps.run((P, max_deg, iters, motion_only, use_inactive, ba_lm,
+                         ba_ep),
+                        lambda: self._step(P, iters, motion_only, ba_lm, ba_ep,
+                                           max_deg, deg))
+        self.age[self.valid] += 1
+        self.video.dirty[int(vi.min()):t1] = True
+
+    def _stage(self, inac_ok, base: int, t0: int, t1: int):
+        """Write what the step reads into the host staging buffer and copy
+        it to the device buffer ``_steps.inputs`` in one copy."""
+        if self._steps is None:
+            self._steps = _StepGraphs(3 * self.cap + 3 * self.cap_inac + 3,
+                                      self.video.device)
+        cap, ci = self.cap, self.cap_inac
+        s = self._steps.staging()
+        s[:cap] = self.valid
+        s[cap:2 * cap] = np.where(self.valid, self.ii, 0)
+        s[2 * cap:3 * cap] = np.where(self.valid, self.jj, 0)
+        o = 3 * cap
+        s[o:o + ci] = self.ii_inac
+        s[o + ci:o + 2 * ci] = self.jj_inac
+        s[o + 2 * ci:o + 3 * ci] = inac_ok
+        s[-3:] = (base, t0, t1)
+        self._steps.upload()
+
+    def _step(self, P, iters, motion_only, lm, ep, max_deg, deg):
+        """The step's device work, reading its edges and window from the
+        device buffer ``_steps.inputs`` and writing its results in place:
+        the slabs net/target/weight where valid, and the video's poses,
+        disparities, damping and upsampled disparities of the window."""
         v = self.video
-        h8, w8 = self.h8, self.w8
-        cdt = self.cdt
-        valid = self._t(self.valid)
-        ii_s = self._t(np.where(self.valid, self.ii, 0))
-        jj_s = self._t(np.where(self.valid, self.jj, 0))
+        cap, ci, cdt = self.cap, self.cap_inac, self.cdt
+        x = self._steps.inputs
+        valid = x[:cap] != 0
+        ii_s, jj_s = x[cap:2 * cap], x[2 * cap:3 * cap]
+        base, t0, t1 = x[-3], x[-2], x[-1]
+        win = base + torch.arange(P, device=x.device)
 
         coords1, _ = projective.transform(v.poses, v.disps, v.intrinsics,
                                           ii_s, jj_s)
@@ -383,40 +434,38 @@ class FactorGraph:
             num_frames=P)
 
         vm = valid[:, None, None, None]
-        self.net = torch.where(vm, net_new.to(self.net.dtype), self.net)
-        self.target = torch.where(vm, coords1 + delta.float(), self.target)
-        self.weight = torch.where(
-            vm, w_new.float() * self.model.weight_calib, self.weight)
+        torch.where(vm, net_new.to(self.net.dtype), self.net, out=self.net)
+        torch.where(vm, coords1 + delta.float(), self.target,
+                    out=self.target)
+        torch.where(vm, w_new.float() * self.model.weight_calib,
+                    self.weight, out=self.weight)
 
         # damping of the window's frames that have edges
-        win = slice(base, base + P)
-        damping_w = torch.where(has_edge[:, None, None], eta.float(),
-                                v.damping[win])
-        v.damping[win] = damping_w
+        has = has_edge[:, None, None]
+        damping_w = torch.where(has, eta.float(),
+                                v.damping.index_select(0, win))
+        v.damping.index_copy_(0, win, damping_w)
 
-        if self.cap_inac:
-            ii_in = self._t(self.ii_inac)
-            jj_in = self._t(self.jj_inac)
+        if ci:
+            o = 3 * cap
+            ii_in, jj_in = x[o:o + ci], x[o + ci:o + 2 * ci]
             ii_ba = torch.cat([ii_local, (ii_in - base).clamp(0, P - 1)])
             jj_ba = torch.cat([jj_local, (jj_in - base).clamp(0, P - 1)])
             tg_ba = torch.cat([self.target, self.target_inac])
             wt_ba = torch.cat([self.weight, self.weight_inac])
-            ok_ba = torch.cat([valid, self._t(inac_ok)])
+            ok_ba = torch.cat([valid, x[o + 2 * ci:o + 3 * ci] != 0])
         else:
             ii_ba, jj_ba, tg_ba, wt_ba, ok_ba = (
                 ii_local, jj_local, self.target, self.weight, valid)
 
-        disps_w = self._window_ba(P, base, damping_w, ii_ba, jj_ba, tg_ba,
-                                  wt_ba, ok_ba, t0, t1, iters, ba_lm, ba_ep,
-                                  motion_only, max_deg)
+        disps_w = self._window_ba(win, damping_w, ii_ba, jj_ba, tg_ba, wt_ba,
+                                  ok_ba, t0 - base, t1 - base, iters, lm, ep,
+                                  motion_only, max_deg, deg)
 
         if self.upsample:
             up = upsample_disp(disps_w, upmask.float())
-            v.disps_up[win] = torch.where(has_edge[:, None, None], up,
-                                          v.disps_up[win])
-
-        self.age[self.valid] += 1
-        v.dirty[int(vi.min()):t1] = True
+            v.disps_up.index_copy_(0, win, torch.where(
+                has, up, v.disps_up.index_select(0, win)))
 
     # ------------------------------------------------------------------
     # low-memory update for global BA
@@ -464,7 +513,7 @@ class FactorGraph:
         poses.  With a mesh (and not motion-only) the step is sharded:
         ``_lowmem_step_sharded``."""
         v = self.video
-        max_deg = self._max_deg(self.ii[self.valid])
+        deg, max_deg = self._max_deg(np.clip(self.ii[self.valid], 0, P - 1))
         if self.mesh is not None and not motion_only:
             self._lowmem_step_sharded(P, Tb, t0, t1, iters, lm, ep, max_deg)
             return
@@ -494,9 +543,10 @@ class FactorGraph:
                                 v.damping[:P])
         v.damping[:P] = damping_w
 
-        self._window_ba(P, 0, damping_w, ii_local, jj_s.clamp(0, P - 1),
-                        self.target, self.weight, valid, t0, t1, iters, lm,
-                        ep, motion_only, max_deg, solver=solver)
+        self._window_ba(torch.arange(P, device=v.device), damping_w, ii_local,
+                        jj_s.clamp(0, P - 1), self.target, self.weight, valid,
+                        t0, t1, iters, lm, ep, motion_only, max_deg, deg,
+                        solver=solver)
 
     def _lowmem_step_sharded(self, P, Tb, t0, t1, iters, lm, ep, max_deg):
         """The low-memory step with its edges sharded over the mesh, the
@@ -634,3 +684,83 @@ class FactorGraph:
         mean = seg_sum / seg_cnt.clamp(min=1.0)[:, None, None, None]
         eta, _ = self.model.update.agg.frame_head(mean, want_upmask=False)
         return eta.float(), seg_cnt > 0
+
+
+class _StepGraphs:
+    """A FactorGraph's update step as inputs staged in one buffer and, on
+    CUDA, CUDA graphs by shape key.
+
+    The host writes the step's inputs into ``staging()`` (pinned on
+    CUDA) and ``upload()`` copies them into the device buffer ``inputs``
+    without a synchronize; before handing the staging buffer out again
+    the host waits for the last copy out of it (an event), which the
+    stream runs after the step that read the copy before it.  ``run``
+    runs a step eagerly at its key's first sighting, and always off
+    CUDA; captures it into a CUDA graph at the second sighting; and
+    replays it from then on (the capture only records, so the step then
+    runs by replay too).  Every graph allocates from one pool: they run
+    one at a time on one stream, and each leaves its results in the
+    caller's persistent tensors, never in the pool.  The kernel launches
+    a capture records are counted at each replay, not at the capture,
+    which launches nothing (``trace.launches``)."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._staging = torch.zeros(n, dtype=torch.int64,
+                                    pin_memory=self.cuda)
+        self.inputs = torch.zeros(n, dtype=torch.int64, device=device)
+        self._copied = torch.cuda.Event() if self.cuda else None
+        self.graphs: dict = {}     # key -> (CUDAGraph, launches it makes)
+        self.seen: set = set()     # keys run once eagerly
+        self._pool = None
+        self._stream = None
+
+    def staging(self) -> np.ndarray:
+        if self._copied is not None:
+            self._copied.synchronize()
+        return self._staging.numpy()
+
+    def upload(self):
+        self.inputs.copy_(self._staging, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+
+    def run(self, key, step):
+        entry = self.graphs.get(key)
+        if entry is None and key in self.seen:
+            before = trace.launches()
+            graph = self._capture(step)
+            made = {k: n - before.get(k, 0)
+                    for k, n in trace.launches().items()
+                    if n != before.get(k, 0)}
+            trace.count_launches(made, -1)
+            entry = self.graphs[key] = (graph, made)
+            trace.add("update.captures")
+        if entry is None:
+            step()
+            if self.cuda:
+                self.seen.add(key)
+        else:
+            entry[0].replay()
+            trace.count_launches(entry[1])
+        trace.add("update.replays", int(entry is not None))
+
+    def _capture(self, step) -> torch.cuda.CUDAGraph:
+        """``step()`` captured into a new CUDA graph on a side stream."""
+        dev = self.inputs.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        if not self.graphs:
+            # a pool lives as long as a graph holds it
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        side, cur = self._stream, torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=self._pool)
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        return graph

@@ -4,7 +4,9 @@ At termination every input frame gets a pose by geodesic interpolation
 between its bracketing keyframes, refined with 6 motion-only update
 iterations against those keyframes (edges keyframe -> frame, so the
 keyframes' disparities drive the reprojection).  Frames are appended to
-the video temporarily, a batch at a time, and removed again.
+the video temporarily, a batch at a time, and removed again.  One factor
+graph serves every batch of a call, so an update step of a shape an
+earlier batch ran is replayed (on CUDA, a CUDA graph).
 
 As in the JAX package, the filler's graph runs in the default bf16
 compute dtype whatever ``tracking.compute_dtype`` says.
@@ -30,7 +32,7 @@ class TrajectoryFiller:
         self.batch = batch
         self._encode = motion_filter.encode
 
-    def _fill_batch(self, timestamps, images, intrinsics):
+    def _fill_batch(self, graph, timestamps, images, intrinsics):
         video = self.video
         dev = video.device
         N = video.counter
@@ -66,8 +68,7 @@ class TrajectoryFiller:
             video.append(float(tt[k]), Gs[k], 1.0, None, intr,
                          fmaps[k], zeros_ctx, zeros_ctx)
 
-        graph = FactorGraph(video, self.model, max_factors=2 * self.batch + 8,
-                            corr_impl="volume", inac_capacity=-1)
+        graph.clear_edges()
         graph.add_factors(t0, np.arange(N, N + M))
         graph.add_factors(t1, np.arange(N, N + M))
         for _ in range(6):
@@ -81,6 +82,9 @@ class TrajectoryFiller:
     def __call__(self, stream) -> np.ndarray:
         """stream yields (timestamp, image [rig,ht,wd,3], depth, intrinsics,
         gt_pose).  Returns [n_frames, 7] w2c poses for every frame."""
+        graph = FactorGraph(self.video, self.model,
+                            max_factors=2 * self.batch + 8,
+                            corr_impl="volume", inac_capacity=-1)
         poses: List[np.ndarray] = []
         ts_b, im_b, intr_b = [], [], []
         for (timestamp, image, depth, intrinsics, gt_pose) in stream:
@@ -88,8 +92,8 @@ class TrajectoryFiller:
             im_b.append(np.asarray(image)[0])
             intr_b.append(intrinsics)
             if len(ts_b) == self.batch:
-                poses.append(self._fill_batch(ts_b, im_b, intr_b))
+                poses.append(self._fill_batch(graph, ts_b, im_b, intr_b))
                 ts_b, im_b, intr_b = [], [], []
         if ts_b:
-            poses.append(self._fill_batch(ts_b, im_b, intr_b))
+            poses.append(self._fill_batch(graph, ts_b, im_b, intr_b))
         return np.concatenate(poses, axis=0)

@@ -54,10 +54,16 @@ Span names begin with ``slam.``, a prefix no kernel shares:
 
 Counters: ``frames``; ``keyframes`` (admitted), ``keyframes_removed``
 (by the frontend); ``update.calls``, ``update.edges`` (live edges at each
-``FactorGraph.update``); ``update_lowmem.calls``, ``.edges``, ``.steps``;
-``global_ba.calls``, ``.edges``; ``loop_closing.calls``, ``.edges``;
-``pcg.solves``, ``pcg.iters``; ``mapper.rounds``, ``.steps``, ``.rays``;
-``launch.edge_system``, ``launch.alt_corr``, ``launch.schur_matvec``.
+``FactorGraph.update``); ``update.captures`` (each capture of the update
+step into a CUDA graph), ``update.replays`` (each update step whose
+device work ran as a graph replay; an eager step adds 0, so the counter
+is there whenever a step ran); ``update_lowmem.calls``, ``.edges``,
+``.steps``; ``global_ba.calls``, ``.edges``; ``loop_closing.calls``,
+``.edges``; ``pcg.solves``, ``pcg.iters``; ``mapper.rounds``, ``.steps``,
+``.rays``; ``launch.edge_system``, ``launch.alt_corr``,
+``launch.schur_matvec`` (a launch captured into a CUDA graph counts at
+each of the graph's replays, and not at its capture: ``launches``,
+``count_launches``).
 """
 from __future__ import annotations
 
@@ -132,6 +138,19 @@ def launch(kernel: str):
     """One launch of the hand-written kernel `kernel`, counted whether
     tracing is on or off."""
     _counters["launch." + kernel] += 1
+
+
+def launches() -> Dict[str, int]:
+    """The launch counters: ``launch.<kernel>`` -> launches."""
+    return {k: n for k, n in _counters.items() if k.startswith("launch.")}
+
+
+def count_launches(counts: Dict[str, int], sign: int = 1):
+    """Add ``launches()``-style `counts` to the launch counters (`sign`
+    -1 takes them back): a CUDA graph's launches count at each replay,
+    and not at its capture, which launches nothing."""
+    for k, n in counts.items():
+        _counters[k] += sign * n
 
 
 def at_frame(frame: int):
