@@ -82,6 +82,12 @@ def sample_rays(frames: torch.Tensor, keys: torch.Tensor, images,
             gt_color.reshape(-1, 3), gt_depth.reshape(-1))
 
 
+def _rays_with_depth(gt_depth: torch.Tensor):
+    """The rays of a batch (padding not yet added) whose target depth is
+    positive, counted on the device while the tracer is on; else 0."""
+    return (gt_depth > 0).sum() if trace.ON else 0
+
+
 def clip_by_global_norm(grads: Sequence[torch.Tensor],
                         max_norm: float) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: g / norm * max_norm, only when the norm
@@ -278,6 +284,7 @@ class Mapper:
                 c2w_base = torch.cat([c2w_base, lie.identity(
                     (F - c2w_base.shape[0],), device=self.device)])
             R = fo.shape[0]
+            with_depth = _rays_with_depth(gd)
             pad = bucket(R) - R
             if pad:
                 fo = torch.cat([fo, fo[:pad]])
@@ -287,6 +294,7 @@ class Mapper:
             self.global_step += 1
             trace.add("mapper.steps")
             trace.add("mapper.rays", R)
+            trace.add("mapper.rays_depth", with_depth)
             with trace.span("slam.map_step"):
                 metrics = self.train_step_ba(deltas, cam_opt, c2w_base, fo,
                                              dc, gc, gd, bound,
@@ -323,6 +331,7 @@ class Mapper:
         (``shard_rays``)."""
         rays_o, rays_d, gt_color, gt_depth = batch
         R = rays_o.shape[0]
+        with_depth = _rays_with_depth(gt_depth)
         pad = bucket(R) - R
         if pad:
             rays_o = torch.cat([rays_o, rays_o[:pad]])
@@ -340,6 +349,7 @@ class Mapper:
             self.global_step += 1
             trace.add("mapper.steps")
             trace.add("mapper.rays", R)
+            trace.add("mapper.rays_depth", with_depth)
             with trace.span("slam.map_step"):
                 metrics = step(rays_o, rays_d, gt_color, gt_depth, bound,
                                realtime_bound)

@@ -52,7 +52,7 @@ class Frontend:
     @torch.no_grad()
     def __call__(self):
         if not self.is_initialized and self.video.counter == self.warmup:
-            with trace.span("slam.frontend"):
+            with trace.span("slam.frontend"), trace.span("slam.initialize"):
                 self._initialize()
         elif self.is_initialized and self.t1 < self.video.counter:
             with trace.span("slam.frontend"):

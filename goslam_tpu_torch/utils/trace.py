@@ -11,18 +11,21 @@ recorded stays until ``reset()``.
     a profile's host timeline carries the program's names.  Off, it is
     one test of a module global and returns a shared null context:
     nothing is allocated, opened or timed.
-  * ``add(counter, n)`` adds to a named integer counter, on only.
+  * ``add(counter, n)`` adds to a named integer counter, on only.  `n`
+    is a host int or a device tensor; a tensor is summed on the device
+    and read when the counters are read (``counters()``).
     ``launch(kernel)`` counts one launch of a hand-written kernel
     (``launch.<kernel>``), on or off: the count shows that a path went
     through the kernel.
 
-Neither synchronizes the device, and no counter reads a device value: a
-span's duration is the host's time in it, a wait for the device
-included.  Readers: ``records()``, ``counters()``, ``clock_offset_ns()``
-(the profiler's clock minus ``perf_counter_ns``, measured when the
-tracer is enabled or reset) and ``write_chrome(path)``, which writes the
-spans as Chrome-trace complete events and the counters as counter
-events, on the ``perf_counter`` clock.
+Neither synchronizes the device, and no counter reads a device value
+before ``counters()``: a span's duration is the host's time in it, a
+wait for the device included.  Readers: ``records()``, ``counters()``,
+``clock_offset_ns()`` (the profiler's clock minus ``perf_counter_ns``,
+measured when the tracer is enabled or reset) and
+``write_chrome(path)``, which writes the spans as Chrome-trace complete
+events and the counters as counter events, on the ``perf_counter``
+clock.
 
 Span names begin with ``slam.``, a prefix no kernel shares:
 
@@ -39,6 +42,7 @@ Span names begin with ``slam.``, a prefix no kernel shares:
       slam.flow                one update iteration at zero flow
       slam.admit               the admit test (reads the flow's mean)
     slam.frontend            Frontend.__call__ when it works
+      slam.initialize          the warm-up's 16 update steps, once a system
       slam.propose             edge proposal and the new edges' set-up
       slam.update              FactorGraph.update (also the filler's)
       slam.keyframe_test       the keyframe-distance test
@@ -60,10 +64,11 @@ device work ran as a graph replay; an eager step adds 0, so the counter
 is there whenever a step ran); ``update_lowmem.calls``, ``.edges``,
 ``.steps``; ``global_ba.calls``, ``.edges``; ``loop_closing.calls``,
 ``.edges``; ``pcg.solves``, ``pcg.iters``; ``mapper.rounds``, ``.steps``,
-``.rays``; ``launch.edge_system``, ``launch.alt_corr``,
-``launch.schur_matvec`` (a launch captured into a CUDA graph counts at
-each of the graph's replays, and not at its capture: ``launches``,
-``count_launches``).
+``.rays``, ``.rays_depth`` (the rays whose target depth is positive,
+padding left out; a device sum); ``launch.edge_system``,
+``launch.alt_corr``, ``launch.schur_matvec`` (a launch captured into a
+CUDA graph counts at each of the graph's replays, and not at its
+capture: ``launches``, ``count_launches``).
 """
 from __future__ import annotations
 
@@ -81,6 +86,7 @@ _frame = 0
 _records: List[list] = []          # [name, start_ns, end_ns, parent, frame]
 _open: List[int] = []              # indices of the open spans, innermost last
 _counters: collections.Counter = collections.Counter()
+_device_counters: Dict[str, torch.Tensor] = {}   # summed on the device
 _offset_ns = 0
 
 
@@ -128,9 +134,16 @@ def span(name: str):
     return _Span(name)
 
 
-def add(counter: str, n: int = 1):
-    """Add the host integer `n` to `counter` while tracing is on."""
-    if ON:
+def add(counter: str, n=1):
+    """Add `n` to `counter` while tracing is on: a host integer, or a
+    device tensor, summed on the device without a synchronize."""
+    if not ON:
+        return
+    if torch.is_tensor(n):
+        acc = _device_counters.get(counter)
+        _device_counters[counter] = n.to(torch.int64, copy=True) \
+            if acc is None else acc + n
+    else:
         _counters[counter] += n
 
 
@@ -189,6 +202,7 @@ def reset():
     _records.clear()
     _open.clear()
     _counters.clear()
+    _device_counters.clear()
     _measure_offset()
 
 
@@ -199,7 +213,12 @@ def records() -> List[Span]:
 
 
 def counters() -> Dict[str, int]:
-    return dict(_counters)
+    """Every counter's value; a device counter is read here (one
+    synchronize)."""
+    out = dict(_counters)
+    for k, t in _device_counters.items():
+        out[k] = out.get(k, 0) + int(t)
+    return out
 
 
 def clock_offset_ns() -> int:
@@ -222,11 +241,12 @@ def write_chrome(path: str):
                        "ts": s / 1e3, "dur": max(e - s, 0) / 1e3,
                        "args": {"frame": frame, "parent": parent,
                                 "index": i}})
-    for name, n in sorted(_counters.items()):
+    totals = counters()
+    for name, n in sorted(totals.items()):
         events.append({"name": name, "ph": "C", "pid": pid, "tid": 0,
                        "ts": last / 1e3, "args": {"value": n}})
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms",
-                   "counters": dict(_counters),
+                   "counters": totals,
                    "clock_offset_ns": _offset_ns}, f)

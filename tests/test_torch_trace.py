@@ -26,12 +26,13 @@ LAYER_SPANS = {
     "slam.track": None, "slam.ingest": "slam.track",
     "slam.motion_filter": "slam.track", "slam.encode": "slam.motion_filter",
     "slam.flow": "slam.motion_filter", "slam.admit": "slam.motion_filter",
-    "slam.frontend": "slam.track", "slam.update": "slam.frontend",
+    "slam.frontend": "slam.track", "slam.initialize": "slam.frontend",
+    "slam.update": ("slam.frontend", "slam.initialize"),
     "slam.keyframe_test": "slam.frontend",
     "slam.loop_closing": "slam.frontend",
     "slam.update_lowmem": ("slam.loop_closing", "slam.global_ba"),
-    "slam.propose": ("slam.frontend", "slam.loop_closing",
-                     "slam.global_ba"),
+    "slam.propose": ("slam.frontend", "slam.initialize",
+                     "slam.loop_closing", "slam.global_ba"),
     "slam.global_ba": "slam.track", "slam.multiview_filter": "slam.track",
     "slam.mapper": "slam.track", "slam.map_step": "slam.mapper",
 }
@@ -60,8 +61,10 @@ def _cfg():
 def _drive(out_dir, traced):
     """Build a system and track FRAMES frames; returns the system and,
     traced, the profile.  Records each FactorGraph.update call's live
-    edges."""
+    edges, and the positive target depths of each map step's rays (its
+    padding rays have depth 0)."""
     from goslam_tpu_torch.data.synthetic import Synthetic
+    from goslam_tpu_torch.mapping.mapper import Mapper
     from goslam_tpu_torch.models.convert import load_checkpoint
     from goslam_tpu_torch.system import SLAMSystem
     from goslam_tpu_torch.tracking.factor_graph import FactorGraph
@@ -71,13 +74,19 @@ def _drive(out_dir, traced):
     ds = Synthetic(cfg)
     sd = load_checkpoint(CKPT)
     live, update = [], FactorGraph.update
+    depths, train_step = [], Mapper.train_step
 
     def counted(self, *a, **k):
         if self.valid.any():
             live.append(int(self.valid.sum()))
         return update(self, *a, **k)
 
+    def step(self, rays_o, rays_d, gt_color, gt_depth, *a, **k):
+        depths.append(int((gt_depth > 0).sum()))
+        return train_step(self, rays_o, rays_d, gt_color, gt_depth, *a, **k)
+
     FactorGraph.update = counted
+    Mapper.train_step = step
     prof = None
     try:
         trace.reset()
@@ -98,7 +107,9 @@ def _drive(out_dir, traced):
             prof.__exit__(None, None, None)
         trace.disable()
         FactorGraph.update = update
+        Mapper.train_step = train_step
     return {"slam": slam, "prof": prof, "live": live, "calls": calls,
+            "depths": depths,
             "records": trace.records(), "counters": trace.counters(),
             "offset": trace.clock_offset_ns()}
 
@@ -164,6 +175,28 @@ def test_counters_agree_with_the_system(runs):
     assert not any(k.startswith("pcg.") for k in c)   # under 192 poses
 
 
+def test_the_warm_up_is_one_span_inside_the_frontend(runs):
+    """slam.initialize: once per system, inside slam.frontend, around the
+    warm-up's 16 update steps and its two edge proposals."""
+    recs = runs["on"]["records"]
+    init = [i for i, r in enumerate(recs) if r.name == "slam.initialize"]
+    assert len(init) == 1
+    assert recs[recs[init[0]].parent].name == "slam.frontend"
+    inside = Counter(r.name for r in recs if r.parent == init[0])
+    assert inside == {"slam.update": 16, "slam.propose": 2}, inside
+
+
+def test_rays_with_depth_are_counted_beside_the_rays(runs):
+    """mapper.rays_depth: the rays of each map step whose target depth is
+    positive, padding left out, summed on the device and read with the
+    counters; at most mapper.rays."""
+    on = runs["on"]
+    c = on["counters"]
+    assert len(on["depths"]) == c["mapper.steps"] > 0
+    assert c["mapper.rays_depth"] == sum(on["depths"]) > 0
+    assert c["mapper.rays_depth"] <= c["mapper.rays"]
+
+
 def test_tracing_changes_no_result(runs):
     a, b = runs["off"]["slam"], runs["on"]["slam"]
     n = a.video.counter
@@ -227,6 +260,24 @@ def test_span_when_off_is_one_shared_null_context():
     assert trace.records() == []
     trace.reset()
     assert trace.counters() == {} and trace.records() == []
+
+
+def test_a_device_count_is_summed_on_the_device_and_read_as_an_int():
+    from goslam_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    try:
+        trace.add("mapper.rays_depth", torch.tensor(3))
+        trace.add("mapper.rays_depth", torch.tensor([1, 0, 1]).sum())
+        trace.add("mapper.rays", 6)
+    finally:
+        trace.disable()
+    trace.add("mapper.rays_depth", torch.tensor(100))     # off: not counted
+    c = trace.counters()
+    assert c == {"mapper.rays_depth": 5, "mapper.rays": 6}
+    assert type(c["mapper.rays_depth"]) is int
+    trace.reset()
+    assert trace.counters() == {}
 
 
 def _pcg_counters():
