@@ -3,7 +3,8 @@
   * ``build_pyramid``: all-pairs volume of /4-scaled features, stored in
     bf16, then 2x2 average-pooled over the target dims (4 levels);
   * ``lookup``: 4 levels x (2r+1)^2 bilinear taps per pixel, read from
-    the volume by a direct indexed gather of the (2r+2)^2 integer window;
+    the volume by a direct indexed gather of the (2r+2)^2 integer window
+    (of a chosen subset of the volume's edge rows, in place);
   * ``alt_corr``: the same taps recomputed from feature pyramids without
     a volume (the backend's memory-lean correlation).  On a CUDA tensor it
     launches the hand-written kernel ``csrc/alt_corr.cu``; on a CPU tensor
@@ -58,22 +59,30 @@ def _floor_split(c: torch.Tensor):
 
 
 def _window_gather(vol: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
-                   radius: int) -> torch.Tensor:
+                   radius: int, slots=None) -> torch.Tensor:
     """Gather the (2r+2)^2 integer window at (y0-r.., x0-r..) per pixel.
 
-    vol [E, P1, H2, W2]; x0/y0 [E, P1] int64.  Returns [E, P1, S(y), S(x)]
-    fp32 with zeros out of bounds (the index is clamped to 0 there and
-    the value masked: a gather must never be handed an index out of
+    vol [E, P1, H2, W2] (with `slots` [E]: [N, P1, H2, W2], edge e reading
+    row slots[e], in place); x0/y0 [E, P1] int64.  Returns [E, P1, S(y),
+    S(x)] fp32 with zeros out of bounds (the index is clamped to 0 there
+    and the value masked: a gather must never be handed an index out of
     range)."""
-    E, P1, H2, W2 = vol.shape
+    _, P1, H2, W2 = vol.shape
+    E = x0.shape[0]
     S = 2 * radius + 2
     off = torch.arange(S, device=vol.device) - radius
     ay = y0[..., None, None] + off[:, None]
     ax = x0[..., None, None] + off[None, :]
     inb = (ay >= 0) & (ay < H2) & (ax >= 0) & (ax < W2)
-    idx = torch.where(inb, ay * W2 + ax, torch.zeros_like(ay))
-    taps = torch.gather(vol.reshape(E, P1, H2 * W2), 2,
-                        idx.reshape(E, P1, S * S)).reshape(E, P1, S, S)
+    idx = torch.where(inb, ay * W2 + ax,
+                      torch.zeros_like(ay)).reshape(E, P1, S * S)
+    if slots is None:
+        taps = torch.gather(vol.reshape(E, P1, H2 * W2), 2, idx)
+    else:
+        # a flat index into the whole volume: no copy of the edges' rows
+        row = slots[:, None] * P1 + torch.arange(P1, device=vol.device)
+        taps = vol.view(-1)[row[..., None] * (H2 * W2) + idx]
+    taps = taps.reshape(E, P1, S, S)
     return torch.where(inb, taps.float(), torch.zeros((), device=vol.device))
 
 
@@ -93,10 +102,12 @@ def _bilinear_window(taps: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
 
 
 def lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor,
-           radius: int = RADIUS) -> torch.Tensor:
+           radius: int = RADIUS, slots=None) -> torch.Tensor:
     """Sample the volume pyramid at per-pixel coords.
 
-    coords [E, h1, w1, 2] (x, y) in level-0 pixels.
+    coords [E, h1, w1, 2] (x, y) in level-0 pixels; edge e reads row e of
+    each level or, given `slots` [E] int64, row slots[e] of levels with
+    any number of rows, read in place (the levels must be contiguous).
     Returns [E, h1, w1, L*(2r+1)^2] fp32, level-major channels."""
     E, h1, w1, _ = coords.shape
     P1 = h1 * w1
@@ -104,7 +115,7 @@ def lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor,
     for lvl, vol in enumerate(levels):
         x0, dx = _floor_split(coords[..., 0].reshape(E, P1) / 2 ** lvl)
         y0, dy = _floor_split(coords[..., 1].reshape(E, P1) / 2 ** lvl)
-        taps = _window_gather(vol, x0, y0, radius)
+        taps = _window_gather(vol, x0, y0, radius, slots)
         out.append(_bilinear_window(taps, dx, dy, radius))
     return torch.cat(out, dim=-1).reshape(E, h1, w1, -1)
 

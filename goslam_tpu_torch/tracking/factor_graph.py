@@ -17,20 +17,26 @@ With a ``ShardMesh`` of more than one shard (``mesh=``), the low-memory
 step of global BA shards its edges over the mesh by source frame
 (``_lowmem_step_sharded``); the frontend's update stays on one device.
 
-Slots are updated in place.  Edges are computed over every slot and
-masked by validity, so results do not depend on which slots are free.
+Slots are updated in place.  The update step runs its per-edge work
+(reprojection, correlation lookup, update operator) over a bucket of B
+slots that holds every live slot, ``B = bucket(live edges)``: the live
+slots, padded with invalid ones, read from the slabs and the volumes in
+place and written back where valid.  Its DBA runs over every slot (and
+the archive), masked by validity.  So results do not depend on which
+slots are free.
 
-The update step's device work has static shapes: every edge slot, and a
-window of P frames read and written at ``base + arange(P)``, ``base`` a
-device scalar.  Its kernels and shapes depend only on the key (P, the
-degree bucket, iters, motion_only, use_inactive, lm, ep); everything
-else is data, which the host stages in one pinned buffer and copies to
-the device at once.  The step writes its results into the graph's and
-the video's own tensors.  So on CUDA a key seen once before is captured
-into a ``torch.cuda.CUDAGraph`` and replayed from then on: one launch
-instead of the step's few hundred.  The first sighting of a key runs
-eagerly, which warms the libraries and the allocator; the CPU always
-runs eagerly, through the same function.
+The update step's device work has static shapes: B edge slots, every
+slot in its DBA, and a window of P frames read and written at ``base +
+arange(P)``, ``base`` a device scalar.  Its kernels and shapes depend
+only on the key (P, B, the degree bucket, iters, motion_only,
+use_inactive, lm, ep); everything else is data -- which slots the
+bucket holds among them -- which the host stages in one pinned buffer
+and copies to the device at once.  The step writes its results into the
+graph's and the video's own tensors.  So on CUDA a key seen once before
+is captured into a ``torch.cuda.CUDAGraph`` and replayed from then on:
+one launch instead of the step's few hundred.  The first sighting of a
+key runs eagerly, which warms the libraries and the allocator; the CPU
+always runs eagerly, through the same function.
 
 Index hygiene: invalid slots carry stale endpoints, so endpoints are
 zeroed where a slot is invalid before any gather, and window-local
@@ -347,17 +353,22 @@ class FactorGraph:
         """One GRU/flow step + `iters` Gauss-Newton DBA iterations: the
         host bookkeeping of the JAX package's ``update`` followed by the
         device work of its ``_update_kernel``, in place."""
-        if not self.valid.any():
+        n = self.n_edges()
+        if not n:
             return
+        # the update operator's slots: a bucket that holds every live one
+        # (cap is a bucket too, so B <= cap)
+        B = bucket(n)
         if trace.ON:
             trace.add("update.calls")
-            trace.add("update.edges", self.n_edges())
+            trace.add("update.edges", n)
+            trace.add("update.slots", B)
         with trace.span("slam.update"):
             self._update(t0, t1, iters, use_inactive, motion_only, ba_lm,
-                         ba_ep)
+                         ba_ep, B)
 
     def _update(self, t0, t1, iters, use_inactive, motion_only, ba_lm,
-                ba_ep):
+                ba_ep, B):
         vi, vj = self.ii[self.valid], self.jj[self.valid]
         if t0 is None:
             t0 = max(1, int(vi.min()) + 1)
@@ -381,21 +392,23 @@ class FactorGraph:
         ii_all = np.concatenate([vi, self.ii_inac[inac_ok]])
         deg, max_deg = self._max_deg(np.clip(ii_all - base, 0, P - 1))
 
-        self._stage(inac_ok, base, t0, t1)
-        self._steps.run((P, max_deg, iters, motion_only, use_inactive, ba_lm,
-                         ba_ep),
-                        lambda: self._step(P, iters, motion_only, ba_lm, ba_ep,
-                                           max_deg, deg))
+        self._stage(inac_ok, base, t0, t1, B)
+        self._steps.run((P, B, max_deg, iters, motion_only, use_inactive,
+                         ba_lm, ba_ep),
+                        lambda: self._step(P, B, iters, motion_only, ba_lm,
+                                           ba_ep, max_deg, deg))
         self.age[self.valid] += 1
         self.video.dirty[int(vi.min()):t1] = True
 
-    def _stage(self, inac_ok, base: int, t0: int, t1: int):
+    def _stage(self, inac_ok, base: int, t0: int, t1: int, B: int):
         """Write what the step reads into the host staging buffer and copy
-        it to the device buffer ``_steps.inputs`` in one copy."""
-        if self._steps is None:
-            self._steps = _StepGraphs(3 * self.cap + 3 * self.cap_inac + 3,
-                                      self.video.device)
+        it to the device buffer ``_steps.inputs`` in one copy: every
+        slot's validity and endpoints, the archive's, the bucket's B
+        slots (``_slot_list``) and the window."""
         cap, ci = self.cap, self.cap_inac
+        if self._steps is None:
+            self._steps = _StepGraphs(4 * cap + 3 * ci + 3,
+                                      self.video.device)
         s = self._steps.staging()
         s[:cap] = self.valid
         s[cap:2 * cap] = np.where(self.valid, self.ii, 0)
@@ -404,14 +417,26 @@ class FactorGraph:
         s[o:o + ci] = self.ii_inac
         s[o + ci:o + 2 * ci] = self.jj_inac
         s[o + 2 * ci:o + 3 * ci] = inac_ok
+        # the live slots in slot order, then distinct invalid ones: there
+        # are cap - live >= B - live of them
+        live = np.flatnonzero(self.valid)
+        o += 3 * ci
+        s[o:o + len(live)] = live
+        s[o + len(live):o + B] = np.flatnonzero(~self.valid)[:B - len(live)]
         s[-3:] = (base, t0, t1)
         self._steps.upload()
 
-    def _step(self, P, iters, motion_only, lm, ep, max_deg, deg):
+    def _slot_list(self, B: int) -> torch.Tensor:
+        """The bucket's B slots on the device, as ``_stage`` wrote them."""
+        o = 3 * self.cap + 3 * self.cap_inac
+        return self._steps.inputs[o:o + B]
+
+    def _step(self, P, B, iters, motion_only, lm, ep, max_deg, deg):
         """The step's device work, reading its edges and window from the
         device buffer ``_steps.inputs`` and writing its results in place:
-        the slabs net/target/weight where valid, and the video's poses,
-        disparities, damping and upsampled disparities of the window."""
+        the slabs net/target/weight at the bucket's valid slots, and the
+        video's poses, disparities, damping and upsampled disparities of
+        the window."""
         v = self.video
         cap, ci, cdt = self.cap, self.cap_inac, self.cdt
         x = self._steps.inputs
@@ -420,25 +445,28 @@ class FactorGraph:
         base, t0, t1 = x[-3], x[-2], x[-1]
         win = base + torch.arange(P, device=x.device)
 
+        # the per-edge work over the bucket's slots
+        slots = self._slot_list(B)
+        ok = valid[slots]
+        ii_b, jj_b = ii_s[slots], jj_s[slots]
+        net_b, target_b = self.net[slots], self.target[slots]
         coords1, _ = projective.transform(v.poses, v.disps, v.intrinsics,
-                                          ii_s, jj_s)
-        motion = self._motion_features(coords1, self.target)
-        corr_feat = corr.lookup(self.pyramid, coords1)
-
-        ii_local = (ii_s - base).clamp(0, P - 1)
-        jj_local = (jj_s - base).clamp(0, P - 1)
+                                          ii_b, jj_b)
+        motion = self._motion_features(coords1, target_b)
+        corr_feat = corr.lookup(self.pyramid, coords1, slots=slots)
 
         net_new, delta, w_new, eta, upmask, has_edge = self.model.update(
-            self.net.to(cdt), v.inps[ii_s], corr_feat.to(cdt),
-            motion.to(cdt), dtype=cdt, ii=ii_local, edge_valid=valid,
-            num_frames=P)
+            net_b.to(cdt), v.inps[ii_b], corr_feat.to(cdt),
+            motion.to(cdt), dtype=cdt, ii=(ii_b - base).clamp(0, P - 1),
+            edge_valid=ok, num_frames=P)
 
-        vm = valid[:, None, None, None]
-        torch.where(vm, net_new.to(self.net.dtype), self.net, out=self.net)
-        torch.where(vm, coords1 + delta.float(), self.target,
-                    out=self.target)
-        torch.where(vm, w_new.float() * self.model.weight_calib,
-                    self.weight, out=self.weight)
+        okm = ok[:, None, None, None]
+        self.net.index_copy_(0, slots, torch.where(
+            okm, net_new.to(self.net.dtype), net_b))
+        self.target.index_copy_(0, slots, torch.where(
+            okm, coords1 + delta.float(), target_b))
+        self.weight.index_copy_(0, slots, torch.where(
+            okm, w_new.float() * self.model.weight_calib, self.weight[slots]))
 
         # damping of the window's frames that have edges
         has = has_edge[:, None, None]
@@ -446,6 +474,8 @@ class FactorGraph:
                                 v.damping.index_select(0, win))
         v.damping.index_copy_(0, win, damping_w)
 
+        ii_local = (ii_s - base).clamp(0, P - 1)
+        jj_local = (jj_s - base).clamp(0, P - 1)
         if ci:
             o = 3 * cap
             ii_in, jj_in = x[o:o + ci], x[o + ci:o + 2 * ci]

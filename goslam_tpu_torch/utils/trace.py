@@ -58,12 +58,14 @@ Span names begin with ``slam.``, a prefix no kernel shares:
 
 Counters: ``frames``; ``keyframes`` (admitted), ``keyframes_removed``
 (by the frontend); ``update.calls``, ``update.edges`` (live edges at each
-``FactorGraph.update``); ``update.captures`` (each capture of the update
-step into a CUDA graph), ``update.replays`` (each update step whose
-device work ran as a graph replay; an eager step adds 0, so the counter
-is there whenever a step ran); ``update_lowmem.calls``, ``.edges``,
-``.steps``; ``global_ba.calls``, ``.edges``; ``loop_closing.calls``,
-``.edges``; ``pcg.solves``, ``pcg.iters``; ``mapper.rounds``, ``.steps``,
+``FactorGraph.update``), ``update.slots`` (the edge slots its update
+operator ran over, the live edges' bucket); ``update.captures`` (each
+capture of the update step into a CUDA graph), ``update.replays`` (each
+update step whose device work ran as a graph replay; an eager step adds
+0, so the counter is there whenever a step ran); ``update_lowmem.calls``,
+``.edges``, ``.steps``; ``global_ba.calls``, ``.edges``;
+``loop_closing.calls``, ``.edges``; ``pcg.solves``, ``pcg.iters``;
+``mapper.rounds``, ``.steps``,
 ``.rays``, ``.rays_depth`` (the rays whose target depth is positive,
 padding left out; a device sum); ``launch.edge_system``,
 ``launch.alt_corr``, ``launch.schur_matvec`` (a launch captured into a

@@ -11,6 +11,11 @@ that runs eagerly or as a CUDA-graph replay.
     or replayed, and never at the capture; off CUDA nothing is captured.
   * The trajectory filler's one graph for every batch gives the poses a
     fresh graph per batch gives.
+  * The update operator runs over a bucket of slots that holds the live
+    edges: the staged slot list holds each live slot once and pads with
+    invalid slots, whose bytes the step keeps; ``update.slots`` counts
+    the bucket; slot layouts of one bucket share one graph key, and a
+    graph captured from one layout replays another exactly.
   * ``dba.ba`` with the caller's host degree raises the same error on an
     overflow as with the degree it reads from the device, and reads
     nothing then.
@@ -326,6 +331,128 @@ def test_the_fillers_one_graph_gives_a_fresh_graphs_poses(cpu_slam,
     each = filler(stream())
     assert one.shape == (10, 7) and np.isfinite(one).all()
     np.testing.assert_array_equal(one, each)
+
+
+def _fill_slots(g, n):
+    """Make free slots live until n are, each with a copy of a live edge's
+    endpoints, set up as ``add_factors`` sets up a new edge."""
+    free, live = np.flatnonzero(~g.valid), np.flatnonzero(g.valid)
+    free = free[:max(0, n - len(live))]
+    src = live[np.arange(len(free)) % len(live)]
+    g.ii[free], g.jj[free] = g.ii[src], g.jj[src]
+    g.age[free] = 0
+    g.valid[free] = True
+    g._write_new_edges(g._t(g.ii[free]), g._t(g.jj[free]), g._t(free))
+
+
+def _drop_to(g, n):
+    """Remove the newest live edges until n are left."""
+    mask = np.zeros(g.cap, bool)
+    mask[np.flatnonzero(g.valid)[n:]] = True
+    g.rm_factors(mask)
+
+
+@pytest.mark.parametrize("live", [40, 96])
+def test_the_update_operator_runs_over_the_live_edges_bucket(cpu_graph,
+                                                            live):
+    """Two steps, the second after the live edges drop to the next
+    smaller bucket's size, from 40 live edges (a bucket of 48 of the
+    graph's 96 slots) and from every slot live: the staged slot list holds
+    each live slot once, in slot order, and pads with distinct invalid
+    slots only; the invalid slots' hidden states, targets and weights
+    keep their bytes; the step equals the all-slot step; and
+    ``update.slots`` sums bucket(live edges) over the calls."""
+    from goslam_tpu_torch.utils import trace
+    from goslam_tpu_torch.utils.shapes import bucket
+    g = cpu_graph
+    state = _save(g)
+    slots_sum = 0
+    trace.reset()
+    trace.enable()
+    try:
+        with torch.no_grad():
+            _drop_to(g, live)
+            _fill_slots(g, live)
+            for call in range(2):
+                n = g.n_edges()
+                if call:
+                    _drop_to(g, max(b for b in (8, 16, 24, 32, 48, 64)
+                                    if b < bucket(n)))
+                    n = g.n_edges()
+                B = bucket(n)
+                assert n == (live if not call else B)
+                assert (B == g.cap) == (live == g.cap and not call)
+                slots_sum += B
+                dead = np.flatnonzero(~g.valid)
+                kept = {k: t[dead].clone() for k, t in _after(g).items()
+                        if k in ("net", "target", "weight")}
+                want = _slice_update(g, use_inactive=True)
+                g.update(use_inactive=True)
+                slots = g._slot_list(B).cpu().numpy()
+                np.testing.assert_array_equal(slots[:n],
+                                              np.flatnonzero(g.valid))
+                assert len(np.unique(slots)) == B
+                assert ((slots >= 0) & (slots < g.cap)).all()
+                assert not g.valid[slots[n:]].any()
+                for k, t in kept.items():
+                    assert torch.equal(_after(g)[k][dead], t), k
+                for k, t in _after(g).items():
+                    torch.testing.assert_close(t, want[k], rtol=0, atol=0,
+                                               msg=k)
+        c = trace.counters()
+    finally:
+        trace.disable()
+        _restore(g, state)
+    assert c["update.calls"] == 2
+    assert c["update.slots"] == slots_sum
+
+
+def test_slot_layouts_of_one_bucket_share_one_graph(cpu_graph):
+    """``_StepGraphs.run`` as on the card, with a stand-in capture that
+    keeps the step function and a replay that runs the kept function:
+    the step's graph key holds the bucket; the same live edges moved to
+    other slots (one bucket) replay the graph captured from the first
+    layout, and that replay equals the all-slot step of the new layout;
+    fewer live edges, in a smaller bucket, make a new key.  40 live
+    edges: a bucket of 48 of the graph's 96 slots."""
+    from goslam_tpu_torch.tracking.factor_graph import _StepGraphs
+    from goslam_tpu_torch.utils.shapes import bucket
+    g = cpu_graph
+    state, old = _save(g), g._steps
+    steps = g._steps = _StepGraphs(old.inputs.numel(), g.video.device)
+    steps.cuda = True              # keys are remembered, as on CUDA
+
+    class Kept:
+        def __init__(self, step):
+            self.replay = step
+
+    steps._capture = Kept
+    kw = {"use_inactive": True}
+    try:
+        with torch.no_grad():
+            _drop_to(g, 40)
+            _fill_slots(g, 40)
+            B = bucket(g.n_edges())
+            assert B == 48
+            g.update(**kw)             # eager
+            g.update(**kw)             # captured and replayed
+            (key,) = steps.graphs
+            assert key[1] == B
+            _permute_slots(g, 3)
+            want = _slice_update(g, **kw)
+            g.update(**kw)             # the first layout's graph
+            assert set(steps.graphs) == {key}
+            for k, t in _after(g).items():
+                torch.testing.assert_close(t, want[k], rtol=0, atol=0,
+                                           msg=k)
+            small = max(b for b in (8, 16, 24, 32, 48) if b < B)
+            _drop_to(g, small)
+            g.update(**kw)
+            g.update(**kw)
+    finally:
+        g._steps = old
+        _restore(g, state)
+    assert sorted(k[1] for k in steps.graphs) == [small, B]
 
 
 def _problem(seed=0, P=6, E=10, ht=4, wd=6):
