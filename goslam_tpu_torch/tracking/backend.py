@@ -1,63 +1,21 @@
 """Backend: global dense bundle adjustment and loop closing.
 
-Builds an edge set over [t_start, t_end) from the flow-distance matrix
-(computed on the device; the greedy NMS selection runs on the host in
-native code, ``native/greedy.cpp``; in loop mode a candidate must also
-pass a neighbourhood-consistency vote),
-then runs the low-memory update (alt-corr + edge-chunked GRU + full DBA)
-over it.  With a ``ShardMesh`` (``mesh=``) the low-memory update shards
-its edges over the mesh, in global BA and in loop closing alike.
+Builds an edge set over [t_start, t_end) with ``proposal.propose_edges``
+(in loop mode the rows are the last ``loop_window`` keyframes, and a
+candidate must also pass a neighbourhood-consistency vote), then runs the
+low-memory update (alt-corr + edge-chunked GRU + full DBA) over it.  With
+a ``ShardMesh`` (``mesh=``) the low-memory update shards its edges over
+the mesh, in global BA and in loop closing alike.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import native
 from ..utils import trace
-from ..utils.greedy import greedy_nms_scan
 from .factor_graph import FactorGraph, resolve_dtype
+from .proposal import propose_edges
 from .video import VideoBuffer
-
-# half-width of the neighbourhood that votes on a loop candidate
-LOOP_VOTE_NEIGH = 1
-
-
-def propose_scan_plain(d, rawd, thresh, nms, es_len0, max_factors, loop,
-                       n_neigh, t_start_loop, t_start, t_end):
-    """Plain version of ``native.greedy_propose`` (the scan that
-    ``Backend._propose_edges`` runs), with its arguments and results: the
-    Python scan of ``utils.greedy`` over ``d`` (mutated), accepting a
-    candidate while the edges number at most ``max_factors``; in loop mode
-    only when more than half of its (2 n_neigh + 1)^2 neighbourhood lies
-    under ``thresh`` in ``rawd``, and then with all of those neighbours.
-    Returns (pairs [N, 2], the number of loop candidates accepted)."""
-    pairs, n_acc = [], 0
-
-    def accept(di, dj):
-        nonlocal n_acc
-        if es_len0 + len(pairs) > max_factors:
-            return False
-        i, j = di + t_start_loop, dj + t_start
-        if not loop:
-            pairs.extend([(i, j), (j, i)])
-            return True
-        sub, votes = [], 0
-        for si in range(max(i - n_neigh, t_start_loop),
-                        min(i + n_neigh + 1, t_end)):
-            for sj in range(max(j - n_neigh, t_start),
-                            min(j + n_neigh + 1, t_end)):
-                if rawd[si - t_start_loop, sj - t_start] <= thresh:
-                    votes += 1
-                    if si != sj:
-                        sub.append((si, sj))
-        if votes > (2 * n_neigh + 1) ** 2 // 2:
-            pairs.extend(sub)
-            n_acc += 1
-        return True
-
-    greedy_nms_scan(d, thresh, nms, accept)
-    return np.asarray(pairs, np.int32).reshape(-1, 2), n_acc
 
 
 class Backend:
@@ -68,7 +26,6 @@ class Backend:
         self.video = video
         self.mesh = mesh
         self.beta = t["beta"]
-        self.upsample = t.get("upsample", False)
         self.backend_thresh = b["thresh"]
         self.backend_radius = b["radius"]
         self.backend_nms = b["nms"]
@@ -83,46 +40,13 @@ class Backend:
         self.total_loop_accepts = 0
 
     def _propose_edges(self, t_start, t_end, t_start_loop, radius, nms,
-                       thresh, max_factors, loop, existing_es):
-        """Greedy distance-sorted edge proposal: every pair within
-        `radius` (and in stereo, outside loop mode, every frame's
-        self-edge), then the closest remaining pairs under `thresh`, with
-        NMS suppression, up to `max_factors` edges.  Rows are the frames
-        [t_start_loop, t_end), columns [t_start, t_end).  In loop mode a
-        candidate is accepted only when more than half of its 3x3
-        neighbourhood lies under `thresh` in the unmasked distances, and
-        then brings all of those neighbours as edges.  The scan is
-        ``native.greedy_propose``; a failed build of it raises (its plain
-        version ``propose_scan_plain`` is the tests' reference)."""
-        ilen = t_end - t_start_loop
-        jlen = t_end - t_start
-        ii0, jj0 = np.meshgrid(np.arange(t_start_loop, t_end),
-                               np.arange(t_start, t_end), indexing="ij")
-        ii_f, jj_f = ii0.reshape(-1), jj0.reshape(-1)
-        d = np.array(self.video.distance(ii_f, jj_f, beta=self.beta),
-                     np.float64)
-        rawd = d.reshape(ilen, jlen).copy()
-        d[ii_f - radius < jj_f] = np.inf
-        d[d > thresh] = np.inf
-        d = d.reshape(ilen, jlen)
-
-        es = list(existing_es)
-        for i in range(t_start_loop, t_end):
-            if self.video.stereo and not loop:
-                # the stereo self-edge, and no proposal at its cell
-                es.append((i, i))
-                d[i - t_start_loop, i - t_start] = np.inf
-            for j in range(max(i - radius, t_start_loop), i):
-                es.append((i, j))
-                es.append((j, i))
-                di, dj = i - t_start_loop, j - t_start
-                d[max(0, di - nms):di + nms + 1,
-                  max(0, dj - nms):dj + nms + 1] = np.inf
-
-        pairs, n_acc = native.greedy_propose(
-            d, rawd, thresh, nms, len(es), max_factors, loop,
-            LOOP_VOTE_NEIGH, t_start_loop, t_start, t_end)
-        es.extend((int(i), int(j)) for i, j in pairs)
+                       thresh, max_factors, loop):
+        """``proposal.propose_edges`` with rows [t_start_loop, t_end),
+        columns [t_start, t_end) and near pairs from t_start_loop on,
+        counting the loop candidates accepted.  Returns the edges."""
+        es, n_acc = propose_edges(self.video, t_start_loop, t_start, t_end,
+                                  radius, nms, thresh, max_factors,
+                                  self.beta, loop, near_from=t_start_loop)
         self.last_loop_accepts += n_acc
         self.total_loop_accepts += n_acc
         return es
@@ -138,7 +62,7 @@ class Backend:
             raise ValueError("t_start_loop must not lie before t_start")
         with trace.span("slam.propose"):
             es = self._propose_edges(t_start, t_end, t_start_loop, radius,
-                                     nms, thresh, max_factors, loop, [])
+                                     nms, thresh, max_factors, loop)
             if len(es) < 3:
                 return 0
             ii, jj = np.asarray(sorted(set(es)), np.int64).T
@@ -155,8 +79,7 @@ class Backend:
 
     def _graph(self, max_factors) -> FactorGraph:
         return FactorGraph(self.video, self.model, max_factors=max_factors,
-                           corr_impl="alt", upsample=self.upsample,
-                           inac_capacity=-1,
+                           corr_impl="alt", inac_capacity=-1,
                            compute_dtype=self.compute_dtype, mesh=self.mesh)
 
     @torch.no_grad()
@@ -197,16 +120,7 @@ class Backend:
 
         graph = self._graph(max_factors)
         if local_graph is not None:
-            sel = np.where(local_graph.valid)[0]
-            n = len(sel)
-            graph.ii[:n] = local_graph.ii[sel]
-            graph.jj[:n] = local_graph.jj[sel]
-            graph.age[:n] = local_graph.age[sel]
-            graph.valid[:n] = True
-            src = torch.as_tensor(sel, device=self.video.device)
-            graph.net[:n] = local_graph.net[src]
-            graph.target[:n] = local_graph.target[src]
-            graph.weight[:n] = local_graph.weight[src]
+            graph.seed_live_edges(local_graph)
 
         left = max_factors - graph.n_edges()
         n_edges = self.ba(t_start, t_end, steps, graph,

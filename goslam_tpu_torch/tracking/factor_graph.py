@@ -1,9 +1,10 @@
 """Factor graph over keyframes: fixed-capacity edge slots on one device.
 
 Host (numpy): edge bookkeeping -- endpoints, age, slot allocation, dedup,
-eviction, edge proposal.  Device (torch): per-edge GRU hidden state, flow
-targets and weights, correlation pyramids, and the update step:
-reproject -> motion features -> correlation -> update operator -> DBA.
+eviction, edge proposal (``proposal.propose_edges``).  Device (torch):
+per-edge GRU hidden state, flow targets and weights, correlation
+pyramids, and the update step: reproject -> motion features ->
+correlation -> update operator -> DBA.
 
 Two correlation backends:
   * 'volume': all-pairs pyramids per edge slot, looked up every step
@@ -54,8 +55,8 @@ from ..models.droidnet import upsample_disp
 from ..ops import corr, dba, projective
 from ..parallel import sharded_ba
 from ..utils import trace
-from ..utils.greedy import greedy_nms_scan
 from ..utils.shapes import bucket
+from .proposal import propose_edges
 from .video import VideoBuffer
 
 EPS_DAMP = 1e-7
@@ -64,6 +65,9 @@ DEG_BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 # edges per GraphAgg block in the global aggregation (bounds the
 # [block, h8, w8, 128] fp32 transient)
 AGG_BLOCK = 3072
+# edges per chunk of the low-memory step's alt-corr GRU, at most (the
+# chunk divides the slot capacity)
+GRU_CHUNK = 256
 # global-BA windows from this many poses on are solved with PCG, with this
 # iteration budget per Gauss-Newton step
 CG_MIN_POSES = 192
@@ -80,7 +84,7 @@ def resolve_dtype(name) -> torch.dtype:
 class FactorGraph:
     def __init__(self, video: VideoBuffer, net, max_factors: int = 96,
                  corr_impl: str = "volume", upsample: bool = False,
-                 inac_capacity: int = 0, chunk: int = 256,
+                 inac_capacity: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
         self.video = video
         self.model = net
@@ -97,7 +101,7 @@ class FactorGraph:
         cap = bucket(max_factors + 48)
         self.cap = cap
         # chunk divides cap, so the chunk loop updates the slabs in place
-        c = min(chunk, cap)
+        c = min(GRU_CHUNK, cap)
         while cap % c:
             c -= 1
         self.chunk = c
@@ -115,8 +119,6 @@ class FactorGraph:
         self.ii_inac = np.zeros(self.cap_inac, np.int64)
         self.jj_inac = np.zeros(self.cap_inac, np.int64)
         self.valid_inac = np.zeros(self.cap_inac, bool)
-        self.ii_bad: list = []
-        self.jj_bad: list = []
 
         f32 = torch.float32
         self.net = torch.zeros((cap, h8, w8, 128), dtype=self.cdt, device=dev)
@@ -200,6 +202,21 @@ class FactorGraph:
             for p, lvl in zip(self.pyramid, levels):
                 p[slots] = lvl
 
+    def seed_live_edges(self, other: "FactorGraph"):
+        """Copy the live edges of ``other`` into this graph's first slots:
+        endpoints, ages and validity on the host, hidden states, targets
+        and weights on the device."""
+        sel = np.flatnonzero(other.valid)
+        n = len(sel)
+        self.ii[:n] = other.ii[sel]
+        self.jj[:n] = other.jj[sel]
+        self.age[:n] = other.age[sel]
+        self.valid[:n] = True
+        src = self._t(sel)
+        self.net[:n] = other.net[src]
+        self.target[:n] = other.target[src]
+        self.weight[:n] = other.weight[src]
+
     def rm_factors(self, mask, store: bool = False):
         """Drop edges; with store, archive their targets and weights."""
         mask = np.asarray(mask, bool) & self.valid
@@ -253,55 +270,21 @@ class FactorGraph:
 
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
                               thresh=16.0, remove=False):
-        """Distance-sorted greedy edge proposal with NMS suppression: the
-        distance matrix on the device, the sequential scan on the host."""
+        """``proposal.propose_edges`` with rows [t0, t), columns [t1, t)
+        (t the video's counter) and near pairs from frame 0 on, suppressed
+        around the live and archived edges; the edges are added in the
+        order proposed.  The threshold is ``thresh`` rounded to float32,
+        the distances' dtype, and at most 100, the frontend's cap."""
         t = self.video.counter
-        ilen, jlen = t - t0, t - t1
-        if ilen <= 0 or jlen <= 0:
+        if t <= t0 or t <= t1:
             return
-        ii0, jj0 = np.meshgrid(np.arange(t0, t), np.arange(t1, t),
-                               indexing="ij")
-        ii_f, jj_f = ii0.reshape(-1), jj0.reshape(-1)
-        d = np.array(self.video.distance(ii_f, jj_f, beta=beta))
-        d[ii_f - rad < jj_f] = np.inf
-        d[d > 100] = np.inf
-        d = d.reshape(ilen, jlen)
-
-        # suppress around existing edges
-        ii1 = np.concatenate([self.ii[self.valid],
-                              np.asarray(self.ii_bad, np.int64),
-                              self.ii_inac[self.valid_inac]])
-        jj1 = np.concatenate([self.jj[self.valid],
-                              np.asarray(self.jj_bad, np.int64),
-                              self.jj_inac[self.valid_inac]])
-        for i, j in zip(ii1, jj1):
-            if t0 <= i < t and t1 <= j < t:
-                di, dj = i - t0, j - t1
-                d[max(0, di - nms):di + nms + 1,
-                  max(0, dj - nms):dj + nms + 1] = np.inf
-
-        es = []
-        for i in range(t0, t):
-            if self.video.stereo:
-                # the stereo self-edge, and no proposal at its cell
-                es.append((i, i))
-                d[i - t0, i - t1] = np.inf
-            for j in range(max(i - rad, 0), i):
-                es.append((i, j))
-                es.append((j, i))
-                di, dj = i - t0, j - t1
-                d[max(0, di - nms):di + nms + 1,
-                  max(0, dj - nms):dj + nms + 1] = np.inf
-
-        def accept(di, dj):
-            if len(es) > self.max_factors:
-                return False
-            es.append((di + t0, dj + t1))
-            es.append((dj + t1, di + t0))
-            return True
-
-        greedy_nms_scan(d, thresh, nms, accept)
-
+        ok, ok_in = self.valid, self.valid_inac
+        taken = [*zip(self.ii[ok], self.jj[ok]),
+                 *zip(self.ii_inac[ok_in], self.jj_inac[ok_in])]
+        es, _ = propose_edges(self.video, t0, t1, t, rad, nms,
+                              min(float(np.float32(thresh)), 100.0),
+                              self.max_factors, beta, loop=False,
+                              near_from=0, suppress=taken)
         if es:
             ii, jj = np.asarray(es, np.int64).T
             self.add_factors(ii, jj, remove)

@@ -7,9 +7,10 @@ against the JAX package, on the CPU.
   * ``dba.ba(solver="cg")`` vs the JAX package's, with the numbers of PCG
     iterations compared, and vs the port's own Cholesky path;
   * ``_inv6`` and ``_pcg`` on singular and non-finite systems;
-  * ``Backend._propose_edges`` (the port's native scan, and its plain
-    version ``propose_scan_plain`` in its place) vs the JAX package's
-    Python and native scans; a failed build of the native scan raises;
+  * ``Backend._propose_edges`` (``proposal.propose_edges`` on the port's
+    native scan, and on its plain version ``propose_scan_plain``) vs the
+    JAX package's Python and native scans; a failed build of the native
+    scan raises;
   * ``FactorGraph.update_lowmem`` over 130 keyframes, where the window
     reaches 192 poses and the solver is PCG, in both packages.
 
@@ -34,7 +35,7 @@ from goslam_tpu.ops import projective as jproj
 from goslam_tpu.tracking.backend import Backend as JBackend
 from goslam_tpu_torch import native
 from goslam_tpu_torch.ops import dba
-from goslam_tpu_torch.tracking import backend
+from goslam_tpu_torch.tracking import proposal
 from goslam_tpu_torch.tracking.backend import Backend
 
 
@@ -458,7 +459,7 @@ def test_propose_edges_matches_jax(monkeypatch, seed, loop, impl):
                        "0" if impl == "python" else "1")
     if impl == "port_plain":
         monkeypatch.setattr(native, "greedy_propose",
-                            backend.propose_scan_plain)
+                            proposal.propose_scan_plain)
     rng = np.random.default_rng(seed)
     n = 48
     dist = 10.0 + 30.0 * rng.random((n, n))
@@ -469,11 +470,10 @@ def test_propose_edges_matches_jax(monkeypatch, seed, loop, impl):
     dist = (dist + dist.T) / 2
     t_start, t_end = 0, n
     t_start_loop = n - 12 if loop else t_start
-    existing = [(40, 39), (39, 40)] if loop else []
     be, jbe = _backends(dist)
-    args = (t_start, t_end, t_start_loop, 1, 2, 14.0, 60, loop, existing)
+    args = (t_start, t_end, t_start_loop, 1, 2, 14.0, 60, loop)
     got = be._propose_edges(*args)
-    want = jbe._propose_edges(*args)
+    want = jbe._propose_edges(*args, existing_es=[])
     assert [(int(a), int(b)) for a, b in got] == \
         [(int(a), int(b)) for a, b in want]
     assert be.total_loop_accepts == jbe.total_loop_accepts
@@ -491,4 +491,4 @@ def test_native_scan_build_failure_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     be, _ = _backends(np.full((8, 8), 1.0))
     with pytest.raises(RuntimeError, match="building greedy.cpp failed"):
-        be._propose_edges(0, 8, 0, 1, 1, 5.0, 20, False, [])
+        be._propose_edges(0, 8, 0, 1, 1, 5.0, 20, False)
