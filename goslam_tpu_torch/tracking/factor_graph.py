@@ -18,13 +18,14 @@ With a ``ShardMesh`` of more than one shard (``mesh=``), the low-memory
 step of global BA shards its edges over the mesh by source frame
 (``_lowmem_step_sharded``); the frontend's update stays on one device.
 
-Slots are updated in place.  The update step runs its per-edge work
-(reprojection, correlation lookup, update operator) over a bucket of B
-slots that holds every live slot, ``B = bucket(live edges)``: the live
-slots, padded with invalid ones, read from the slabs and the volumes in
-place and written back where valid.  Its DBA runs over every slot (and
-the archive), masked by validity.  So results do not depend on which
-slots are free.
+Slots are updated in place.  Both steps run their per-edge work
+(reprojection, correlation lookup, update operator; and in the
+low-memory step GraphAgg's edge side) over a bucket of B slots that
+holds every live slot, ``B = bucket(live edges)``: the live slots,
+padded with invalid ones (``_bucket_slots``), read from the slabs and
+the volumes in place and written back where valid.  Their DBA runs over
+every slot (and the archive), masked by validity.  So results do not
+depend on which slots are free.
 
 The update step's device work has static shapes: B edge slots, every
 slot in its DBA, and a window of P frames read and written at ``base +
@@ -65,8 +66,8 @@ DEG_BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 # edges per GraphAgg block in the global aggregation (bounds the
 # [block, h8, w8, 128] fp32 transient)
 AGG_BLOCK = 3072
-# edges per chunk of the low-memory step's alt-corr GRU, at most (the
-# chunk divides the slot capacity)
+# edges per chunk of the low-memory step's alt-corr GRU, at most (bounds
+# the update operator's transient)
 GRU_CHUNK = 256
 # global-BA windows from this many poses on are solved with PCG, with this
 # iteration budget per Gauss-Newton step
@@ -100,11 +101,6 @@ class FactorGraph:
 
         cap = bucket(max_factors + 48)
         self.cap = cap
-        # chunk divides cap, so the chunk loop updates the slabs in place
-        c = min(GRU_CHUNK, cap)
-        while cap % c:
-            c -= 1
-        self.chunk = c
         self.cap_inac = bucket(max(inac_capacity, max_factors)) \
             if inac_capacity >= 0 else 0
 
@@ -400,14 +396,18 @@ class FactorGraph:
         s[o:o + ci] = self.ii_inac
         s[o + ci:o + 2 * ci] = self.jj_inac
         s[o + 2 * ci:o + 3 * ci] = inac_ok
-        # the live slots in slot order, then distinct invalid ones: there
-        # are cap - live >= B - live of them
-        live = np.flatnonzero(self.valid)
         o += 3 * ci
-        s[o:o + len(live)] = live
-        s[o + len(live):o + B] = np.flatnonzero(~self.valid)[:B - len(live)]
+        s[o:o + B] = self._bucket_slots(B)
         s[-3:] = (base, t0, t1)
         self._steps.upload()
+
+    def _bucket_slots(self, B: int) -> np.ndarray:
+        """The B slots a step runs its per-edge work over: the live slots
+        in slot order, then distinct invalid ones (B is at least the live
+        count and at most cap, so there are enough)."""
+        live = np.flatnonzero(self.valid)
+        return np.concatenate(
+            [live, np.flatnonzero(~self.valid)[:B - len(live)]])
 
     def _slot_list(self, B: int) -> torch.Tensor:
         """The bucket's B slots on the device, as ``_stage`` wrote them."""
@@ -486,19 +486,21 @@ class FactorGraph:
     @torch.no_grad()
     def update_lowmem(self, t0=None, t1=None, iters=2, steps=8, max_t=None,
                       ba_type="dense", motion_only=False):
-        """steps x (edge-chunked alt-corr GRU + full-window BA)."""
-        if not self.valid.any():
+        """steps x (alt-corr GRU over the live edges' bucket + full-window
+        BA)."""
+        n = self.n_edges()
+        if not n:
             return
         if trace.ON:
             trace.add("update_lowmem.calls")
-            trace.add("update_lowmem.edges", self.n_edges())
+            trace.add("update_lowmem.edges", n)
             trace.add("update_lowmem.steps", steps)
         with trace.span("slam.update_lowmem"):
             self._update_lowmem(t0, t1, iters, steps, max_t, ba_type,
-                                motion_only)
+                                motion_only, n)
 
     def _update_lowmem(self, t0, t1, iters, steps, max_t, ba_type,
-                       motion_only):
+                       motion_only, n):
         vi, vj = self.ii[self.valid], self.jj[self.valid]
         if t0 is None:
             t0 = max(1, int(vi.min()) + 1)
@@ -513,53 +515,72 @@ class FactorGraph:
         rig = self.video.rig
         Tb = bucket(min((t + 2) * rig, self.video.buffer * rig))
         P = bucket(t1)
-        for _ in range(steps):
-            self._lowmem_step(P, Tb, t0, t1, iters, lm, ep, motion_only)
+        # the edge set is the same at every step
+        deg, max_deg = self._max_deg(np.clip(vi, 0, P - 1))
+        if self.mesh is not None and not motion_only:
+            for _ in range(steps):
+                self._lowmem_step_sharded(P, Tb, t0, t1, iters, lm, ep,
+                                          max_deg)
+        else:
+            # the per-edge work's slots: a bucket that holds every live one
+            # (cap is a bucket too, so B <= cap)
+            B = bucket(n)
+            trace.add("update_lowmem.slots", B * steps)
+            edges = self._lowmem_edges(B)
+            for _ in range(steps):
+                self._lowmem_step(edges, P, Tb, t0, t1, iters, lm, ep,
+                                  motion_only, max_deg, deg)
         self.video.dirty[:t] = True
 
-    def _lowmem_step(self, P, Tb, t0, t1, iters, lm, ep, motion_only):
-        """One step, the JAX package's ``_lowmem_kernel``: alt-corr GRU
-        over the edge chunks (``_gru_chunks``, updating the slabs in
-        place), whole-graph GraphAgg, then DBA over frames [0, P).
-        Windows of CG_MIN_POSES poses or more take the matrix-free PCG
-        solver: the dense Cholesky solve dominates beyond a few hundred
-        poses.  With a mesh (and not motion-only) the step is sharded:
-        ``_lowmem_step_sharded``."""
-        v = self.video
-        deg, max_deg = self._max_deg(np.clip(self.ii[self.valid], 0, P - 1))
-        if self.mesh is not None and not motion_only:
-            self._lowmem_step_sharded(P, Tb, t0, t1, iters, lm, ep, max_deg)
-            return
-        solver = "cg" if P >= CG_MIN_POSES else "chol"
+    def _lowmem_edges(self, B: int):
+        """The low-memory step's edges on the device, from one upload:
+        every slot's validity and endpoints (0 where invalid), and the
+        bucket's B slots (``_bucket_slots``) with the bucket's validity on
+        the host."""
+        cap = self.cap
+        slots = self._bucket_slots(B)
+        x = self._t(np.concatenate([
+            self.valid, np.where(self.valid, self.ii, 0),
+            np.where(self.valid, self.jj, 0), slots]))
+        return (x[:cap] != 0, x[cap:2 * cap], x[2 * cap:3 * cap],
+                x[3 * cap:], self.valid[slots])
 
-        valid_np = self.valid
-        valid = self._t(valid_np)
-        ii_s = self._t(np.where(valid_np, self.ii, 0))
-        jj_s = self._t(np.where(valid_np, self.jj, 0))
+    def _lowmem_step(self, edges, P, Tb, t0, t1, iters, lm, ep, motion_only,
+                     max_deg, deg):
+        """One step, the JAX package's ``_lowmem_kernel``: alt-corr GRU
+        over the bucket's slots (``_gru_chunks``, updating the slabs in
+        place where valid), GraphAgg over the same slots, then DBA over
+        every slot and frames [0, P).  Windows of CG_MIN_POSES poses or
+        more take the matrix-free PCG solver: the dense Cholesky solve
+        dominates beyond a few hundred poses."""
+        v = self.video
+        solver = "cg" if P >= CG_MIN_POSES else "chol"
+        valid, ii_s, jj_s, slots, ok_np = edges
+
         # each edge's maps in the pyramid: ii's left view, and jj's but for
         # a stereo self-edge, which reads the right view (invalid slots
         # read map 0, as in the JAX package)
-        ii_r, jj_r = ii_s * v.rig, jj_s
+        ok, ii_b, jj_b = valid[slots], ii_s[slots], jj_s[slots]
+        ii_r, jj_r = ii_b * v.rig, jj_b
         if v.stereo:
-            jj_r = torch.where(valid, jj_s * v.rig + (ii_s == jj_s).long(),
-                               torch.zeros_like(jj_s))
+            jj_r = torch.where(ok, jj_b * v.rig + (ii_b == jj_b).long(),
+                               torch.zeros_like(jj_b))
 
         self._gru_chunks(self.model, self._feature_pyramid(Tb), v.poses,
                          v.disps, v.intrinsics, v.inps, self.net,
-                         self.target, self.weight, ii_s, jj_s, ii_r, jj_r,
-                         valid, valid_np)
+                         self.target, self.weight, ii_b, jj_b, ii_r, jj_r,
+                         ok, ok_np, slots)
 
-        ii_local = ii_s.clamp(0, P - 1)
         eta, has_frame = self._agg_head(*self._agg_segments(
-            self.model, self.net, ii_local, valid, P))
+            self.model, self.net[slots], ii_b.clamp(0, P - 1), ok, P))
         damping_w = torch.where(has_frame[:, None, None], eta,
                                 v.damping[:P])
         v.damping[:P] = damping_w
 
-        self._window_ba(torch.arange(P, device=v.device), damping_w, ii_local,
-                        jj_s.clamp(0, P - 1), self.target, self.weight, valid,
-                        t0, t1, iters, lm, ep, motion_only, max_deg, deg,
-                        solver=solver)
+        self._window_ba(torch.arange(P, device=v.device), damping_w,
+                        ii_s.clamp(0, P - 1), jj_s.clamp(0, P - 1),
+                        self.target, self.weight, valid, t0, t1, iters, lm,
+                        ep, motion_only, max_deg, deg, solver=solver)
 
     def _lowmem_step_sharded(self, P, Tb, t0, t1, iters, lm, ep, max_deg):
         """The low-memory step with its edges sharded over the mesh, the
@@ -645,33 +666,39 @@ class FactorGraph:
             v.fmaps[:Tb // v.rig].reshape(-1, self.h8, self.w8, 128))
 
     def _gru_chunks(self, model, fpyr, poses, disps, intrinsics, inps, net,
-                    target, weight, ii, jj, ii_r, jj_r, valid, valid_np):
+                    target, weight, ii, jj, ii_r, jj_r, valid, valid_np,
+                    slots=None):
         """The edge-chunked alt-corr GRU (the JAX package's
-        ``_gru_chunk_scan``) over the slabs net/target/weight [E, ...],
-        updated in place where valid: each chunk of ``self.chunk`` edges
-        is reprojected, looked up in the feature pyramid fpyr and run
-        through the update operator.  ii/jj are the endpoints (0 where
+        ``_gru_chunk_scan``) over the slots ``slots`` [S] of the slabs
+        net/target/weight (every slot if None), updated in place where
+        valid: each chunk of at most GRU_CHUNK of the slots is
+        reprojected, looked up in the feature pyramid fpyr and run through
+        the update operator.  ii/jj [S] are the slots' endpoints (0 where
         invalid), ii_r/jj_r their maps in fpyr, valid_np the host's copy
         of valid: a chunk with no valid edge is skipped."""
         cdt = self.cdt
-        for c0 in range(0, len(valid_np), self.chunk):
-            sl = slice(c0, c0 + self.chunk)
+        if slots is None:
+            slots = torch.arange(len(valid_np), device=net.device)
+        for c0 in range(0, len(valid_np), GRU_CHUNK):
+            sl = slice(c0, c0 + GRU_CHUNK)
             if not valid_np[sl].any():
                 continue           # nothing to update in this chunk
-            ii_ch, ok = ii[sl], valid[sl]
+            s, ii_ch, ok = slots[sl], ii[sl], valid[sl]
+            net_s, target_s = net[s], target[s]
             coords, _ = projective.transform(poses, disps, intrinsics,
                                              ii_ch, jj[sl])
-            motion = self._motion_features(coords, target[sl])
+            motion = self._motion_features(coords, target_s)
             corr_feat = corr.alt_corr(fpyr, coords, ii_r[sl], jj_r[sl])
             net_c, delta_c, w_c = model.update(
-                net[sl].to(cdt), inps[ii_ch], corr_feat.to(cdt),
+                net_s.to(cdt), inps[ii_ch], corr_feat.to(cdt),
                 motion.to(cdt), dtype=cdt)
             okm = ok[:, None, None, None]
-            net[sl] = torch.where(okm, net_c.to(net.dtype), net[sl])
-            target[sl] = torch.where(okm, coords + delta_c.float(),
-                                     target[sl])
-            weight[sl] = torch.where(
-                okm, w_c.float() * model.weight_calib, weight[sl])
+            net.index_copy_(0, s, torch.where(okm, net_c.to(net.dtype),
+                                              net_s))
+            target.index_copy_(0, s, torch.where(
+                okm, coords + delta_c.float(), target_s))
+            weight.index_copy_(0, s, torch.where(
+                okm, w_c.float() * model.weight_calib, weight[s]))
 
     def _agg_segments(self, model, nets, ii_loc, valid, P):
         """GraphAgg's edge side over the slab nets [E, h8, w8, 128]: every

@@ -63,7 +63,10 @@ operator ran over, the live edges' bucket); ``update.captures`` (each
 capture of the update step into a CUDA graph), ``update.replays`` (each
 update step whose device work ran as a graph replay; an eager step adds
 0, so the counter is there whenever a step ran); ``update_lowmem.calls``,
-``.edges``, ``.steps``; ``global_ba.calls``, ``.edges``;
+``.edges``, ``.steps``, ``.slots`` (the edge slots the single-device
+low-memory step ran its per-edge work over, summed over the steps:
+``bucket(live edges) * steps`` a call; the sharded step counts none);
+``global_ba.calls``, ``.edges``;
 ``loop_closing.calls``, ``.edges``; ``pcg.solves``, ``pcg.iters``;
 ``mapper.rounds``, ``.steps``,
 ``.rays``, ``.rays_depth`` (the rays whose target depth is positive,

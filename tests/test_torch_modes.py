@@ -441,18 +441,19 @@ def test_lowmem_stereo_pyramid_indices_match_jax(monkeypatch):
         g.update_lowmem(t0=1, t1=n, steps=1)
     maps, level0, ii_r, jj_r = got[0]
     assert maps == jax_maps == 2 * min(seen["Tb"] // 2, buf)
-    C = g.chunk
+    # the port hands its alt-corr the bucket's slots (one chunk here)
+    slots = g._bucket_slots(len(ii_r))
     # the JAX kernel masks them with the validity (invalid slots read
     # map 0)
     jii = np.where(jvalid, seen["ii_r"], 0)
     jjj = np.where(jvalid, seen["jj_r"], 0)
-    np.testing.assert_array_equal(ii_r.numpy(), jii[:C])
-    np.testing.assert_array_equal(jj_r.numpy(), jjj[:C])
+    np.testing.assert_array_equal(ii_r.numpy(), jii[slots])
+    np.testing.assert_array_equal(jj_r.numpy(), jjj[slots])
     # the pyramid's map k * 2 + r is frame k's view r, at full resolution
     # on level 0
     flat = v.fmaps[:maps // 2].reshape(-1, HT // 8, WD // 8, 128)
     assert torch.equal(level0, corr.build_feature_pyramid(flat)[0])
     # self-edges read the right view of their frame
-    sel = g.valid & (g.ii == g.jj)
+    sel = g.valid[slots] & (g.ii[slots] == g.jj[slots])
     assert sel.any()
-    assert (jj_r.numpy()[sel[:C]] == 2 * g.ii[sel] + 1).all()
+    assert (jj_r.numpy()[sel] == 2 * g.ii[slots][sel] + 1).all()
